@@ -1,0 +1,26 @@
+// Shared declarations for the hand-written Hopper kernels of
+// lyricalignment_tpu_torch. Each launcher is a plain C function: raw
+// pointers and the stream as void*, ints as int; it returns the launch's
+// cudaError_t so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define LA_API extern "C" __attribute__((visibility("default")))
+
+namespace la {
+
+// max / sum over the 16 lanes of a half-warp (lanes differing in bits 0-3)
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace la

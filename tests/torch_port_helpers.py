@@ -1,0 +1,65 @@
+"""Shared fixtures of the port's parity tests (tests/test_torch_*.py): a
+tiny JAX align model with every parameter perturbed from a numpy seed, and
+the same weights loaded into the PyTorch port."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from lyricalignment_tpu.models.align_model import AlignModelConfig as JaxAlignConfig
+from lyricalignment_tpu.models.align_model import init_align_model
+from lyricalignment_tpu.models.whisper import WhisperConfig as JaxWhisperConfig
+from lyricalignment_tpu_torch.models.align_model import AlignModel, AlignModelConfig
+from lyricalignment_tpu_torch.models.convert import state_dict_from_jax_params
+from lyricalignment_tpu_torch.models.whisper import WhisperConfig
+
+# whisper dims of the tiny test backbone (the ten ints of WhisperConfig)
+TINY_DIMS = dict(n_mels=80, n_vocab=64, n_audio_ctx=1500, n_audio_state=64,
+                 n_audio_head=4, n_audio_layer=2, n_text_ctx=16,
+                 n_text_state=64, n_text_head=4, n_text_layer=1)
+
+
+def jax_tiny_model(output_dim: int = 420, hidden_dim: int = 16, seed: int = 0,
+                   fc_scale: float = 1.0, **whisper_kw):
+    """(JAX config, numpy parameter tree): ``init_align_model`` plus a
+    seeded perturbation of every leaf, so zero biases and unit LayerNorm
+    scales do not hide a layout error. ``fc_scale`` multiplies the head's
+    fc weights (sharper emissions, fewer near-ties in the Viterbi)."""
+    cfg = JaxAlignConfig(whisper=JaxWhisperConfig(**TINY_DIMS, **whisper_kw),
+                         hidden_dim=hidden_dim, output_dim=output_dim)
+    params = init_align_model(jax.random.PRNGKey(seed), cfg)
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + 0.02 * rng.standard_normal(x.shape).astype(np.float32),
+        params)
+    params["align_head"]["fc"]["w"] = params["align_head"]["fc"]["w"] * fc_scale
+    return cfg, params
+
+
+def as_jax(params):
+    return jax.tree_util.tree_map(jnp.asarray, params)
+
+
+def torch_model(jax_cfg, params, compute_dtype=torch.float32) -> AlignModel:
+    """The port's AlignModel with the same weights (strict load), eval mode."""
+    wcfg = WhisperConfig(**TINY_DIMS, compute_dtype=compute_dtype,
+                         fast_gelu=jax_cfg.whisper.fast_gelu)
+    cfg = AlignModelConfig(whisper=wcfg, hidden_dim=jax_cfg.hidden_dim,
+                           output_dim=jax_cfg.output_dim)
+    model = AlignModel(cfg)
+    model.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    return model.eval()
+
+
+def with_whisper(jax_cfg, **kw):
+    return dataclasses.replace(jax_cfg, whisper=dataclasses.replace(jax_cfg.whisper, **kw))
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
