@@ -7,18 +7,20 @@ of its JAX counterpart and is tested against it on the CPU
 scipy, never ``jax`` and nothing of ``lyricalignment_tpu``.
 
 Layering:
-    csrc/      — hand-written CUDA C++ kernels (log-mel, encoder attention,
-                 streaming class log-sum-exp, Viterbi DP)
+    csrc/      — hand-written CUDA C++ kernels (log-mel, encoder attention
+                 forward and backward, streaming class log-sum-exp,
+                 Viterbi DP)
     kernels/   — nvcc build of ``csrc/`` into one shared library, ctypes
                  binding, launch counters
     ops/       — plain-tensor functions; each kernel's wrapper sits beside
                  its plain PyTorch version
-    models/    — Whisper encoder (+ decoder parameters), bi-GRU align head,
-                 AlignModel, weight conversion from the JAX layout
-    data/, text/, utils/ — host-side records, WAV IO, tokenizer, pinyin
-                 table, MAE
-    cli/, api.py — alignment inference entry points (``device="cuda"`` by
-                 default)
+    models/    — Whisper encoder and teacher-forced decoder, bi-GRU align
+                 head, AlignModel, weight conversion from the JAX layout
+    train/     — multitask losses, the AdamW chain, trainer, checkpoints
+    data/, text/, utils/ — host-side records, WAV IO, frame labels, the
+                 training pipeline, tokenizers, pinyin table, MAE, metrics
+    cli/, api.py — alignment inference and training entry points
+                 (``device="cuda"`` by default)
 """
 
 __version__ = "0.1.0"

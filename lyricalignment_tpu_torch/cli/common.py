@@ -1,6 +1,7 @@
-"""Shared CLI plumbing: device choice, model config and model-dir loading.
+"""Shared CLI plumbing: device choice, seeding, tokenizers, model config,
+initialisation and model-dir loading.
 
-Port of ``lyricalignment_tpu/cli/common.py:79-204``. A model dir holds
+Port of ``lyricalignment_tpu/cli/common.py:29-204``. A model dir holds
 ``args.json`` + ``model_args.json`` + reference checkpoints
 ``{name}_model.pt`` (``AlignModel.state_dict()``), which load directly with
 ``load_state_dict(strict=True)``.
@@ -8,20 +9,37 @@ Port of ``lyricalignment_tpu/cli/common.py:79-204``. A model dir holds
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-import json
 import os
+import random
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from lyricalignment_tpu_torch.models.align_model import AlignModel, AlignModelConfig
+from lyricalignment_tpu_torch.models.align_model import (
+    AlignModel,
+    AlignModelConfig,
+    init_weights,
+)
 from lyricalignment_tpu_torch.models.convert import load_reference_checkpoint
 from lyricalignment_tpu_torch.models.whisper import (
     WHISPER_CONFIGS,
     WhisperConfig,
     bf16_resident,
 )
+from lyricalignment_tpu_torch.text.bert_tokenizer import (
+    BertWordPieceTokenizer,
+    make_synthetic_vocab,
+)
+from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+from lyricalignment_tpu_torch.train.checkpoints import load_json
+
+# the ten architecture ints of WhisperConfig (OpenAI's ModelDimensions)
+WHISPER_DIMS = ("n_mels", "n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head",
+                "n_audio_layer", "n_text_ctx", "n_text_state", "n_text_head",
+                "n_text_layer")
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
@@ -41,16 +59,57 @@ def resolve_device(device: str = "cuda") -> torch.device:
     return dev
 
 
-def load_json(path: str) -> Dict:
-    with open(path, "r", encoding="utf-8") as f:
-        return json.load(f)
+def set_seed(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def add_asset_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--bert-vocab", type=str, default=None,
+        help="Path to bert-base-chinese vocab.txt (required for id parity; "
+             "omit with --synthetic-vocab for offline smoke runs)")
+    parser.add_argument(
+        "--synthetic-vocab", action="store_true",
+        help="Use a tiny synthetic vocabulary (smoke tests only)")
+    parser.add_argument(
+        "--whisper-bpe", type=str, default=None,
+        help="whisper multilingual.tiktoken ranks (the text codec is not "
+             "ported yet: giving this raises)")
+    parser.add_argument(
+        "--whisper-checkpoint", type=str, default=None,
+        help="Path to an OpenAI whisper .pt checkpoint to initialise the "
+             "backbone (random init otherwise)")
+
+
+def build_tokenizers(args, num_languages: int = 99
+                     ) -> Tuple[BertWordPieceTokenizer, WhisperTokenizer]:
+    """BERT tokenizer from ``--bert-vocab`` (or the synthetic vocabulary)
+    and the whisper special-token layout (``num_languages=100`` for the v3
+    family)."""
+    if args.bert_vocab:
+        bert = BertWordPieceTokenizer(vocab_path=args.bert_vocab)
+    elif getattr(args, "synthetic_vocab", False):
+        bert = BertWordPieceTokenizer(vocab=make_synthetic_vocab(size=21128))
+    else:
+        raise SystemExit("Provide --bert-vocab vocab.txt (bert-base-chinese) or pass "
+                         "--synthetic-vocab for an offline smoke run.")
+    whisper_tok = WhisperTokenizer(
+        multilingual=True, language=getattr(args, "language", "zh"), task="transcribe",
+        bpe_path=getattr(args, "whisper_bpe", None), num_languages=num_languages)
+    return bert, whisper_tok
 
 
 def build_model_config(
     whisper_model: str,
     output_dim: int,
     use_bf16: bool = False,
+    freeze_encoder: bool = False,
+    train_alignment: bool = True,
+    train_transcript: bool = False,
     fast_gelu: bool = False,
+    onepass_encoder: bool = False,
     whisper_dims: Optional[dict] = None,
 ) -> AlignModelConfig:
     """``whisper_dims`` (the ten architecture ints of ``WhisperConfig``)
@@ -60,22 +119,55 @@ def build_model_config(
             else WHISPER_CONFIGS[whisper_model])
     wcfg = dataclasses.replace(
         wcfg, compute_dtype=torch.bfloat16 if use_bf16 else torch.float32,
-        fast_gelu=fast_gelu)
-    return AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=output_dim)
+        fast_gelu=fast_gelu, onepass_encoder=onepass_encoder)
+    return AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=output_dim,
+                            freeze_encoder=freeze_encoder, train_alignment=train_alignment,
+                            train_transcript=train_transcript)
+
+
+def load_openai_checkpoint(path: str, cfg: WhisperConfig) -> Dict[str, torch.Tensor]:
+    """The whisper state dict of an OpenAI ``.pt`` (``{"dims",
+    "model_state_dict"}``), whose key names the port's ``Whisper`` uses;
+    raises unless its dims are ``cfg``'s."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    dims = ckpt["dims"] if isinstance(ckpt["dims"], dict) else vars(ckpt["dims"])
+    want = {k: getattr(cfg, k) for k in WHISPER_DIMS}
+    got = {k: int(dims[k]) for k in WHISPER_DIMS}
+    if got != want:
+        raise SystemExit(f"--whisper-checkpoint dims {got} do not match the model's {want}")
+    return ckpt["model_state_dict"]
+
+
+def init_model(args, mcfg: AlignModelConfig, seed: int, device: torch.device) -> AlignModel:
+    """Random init from ``seed`` (``init_weights``' distributions, drawn on
+    ``device``), the backbone optionally overwritten from
+    ``args.whisper_checkpoint``."""
+    with torch.device(device):
+        model = AlignModel(mcfg)
+    model.to(device)  # the sinusoid buffer is made from numpy, on the CPU
+    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if getattr(args, "whisper_checkpoint", None):
+        sd = load_openai_checkpoint(args.whisper_checkpoint, mcfg.whisper)
+        model.whisper_model.load_state_dict(sd, strict=True)
+    return model
 
 
 def load_model_dir(
     model_dir: str, model_name: str = "best", use_bf16: bool = False,
-    fast_gelu: bool = False, device: str = "cuda",
+    fast_gelu: bool = False, onepass_encoder: bool = True, device: str = "cuda",
 ) -> Tuple[AlignModelConfig, AlignModel, Dict]:
     """Load a model dir into an ``AlignModel`` in eval mode on ``device``.
-    Under ``use_bf16`` the whisper weights are made bf16-resident."""
+    Under ``use_bf16`` the whisper weights are made bf16-resident.
+    ``onepass_encoder`` defaults on for inference, as in the JAX package."""
     dev = resolve_device(device)
     train_args = load_json(os.path.join(model_dir, "args.json"))
     model_args = load_json(os.path.join(model_dir, "model_args.json"))
     mcfg = build_model_config(
         train_args["whisper_model"], output_dim=model_args["output_dim"],
-        use_bf16=use_bf16, fast_gelu=fast_gelu,
+        use_bf16=use_bf16, fast_gelu=fast_gelu, onepass_encoder=onepass_encoder,
+        freeze_encoder=model_args.get("freeze_encoder", False),
+        train_alignment=model_args.get("train_alignment", True),
+        train_transcript=model_args.get("train_transcript", False),
         whisper_dims=train_args.get("whisper_dims"))
 
     base = os.path.join(model_dir, f"{model_name}_model")

@@ -119,11 +119,11 @@ def align_records(records, model, table, bert, args):
                 mel_lens[j] = n // HOP_LENGTH
                 frames[j] = int(round(mel_lens[j] / 2.0))
 
-            out = forward_from_audio(
+            out, _ = forward_from_audio(
                 model, torch.from_numpy(a).to(device),
                 frame_lengths=torch.from_numpy(frames).to(device),
                 mel_lengths=torch.from_numpy(mel_lens).to(device),
-                head_output="hidden" if fused else "logits")
+                align_head_output="hidden" if fused else "logits")
             frames = np.minimum(frames, out.shape[1])
             lab_t, len_t, fr_t = (torch.from_numpy(x) for x in (labels, lens, frames))
             if fused:

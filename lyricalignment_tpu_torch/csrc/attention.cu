@@ -1,17 +1,27 @@
-// Non-causal multi-head self-attention with an additive key bias, for the
-// Whisper encoder: out = softmax(q k^T + bias) v per (batch, head), with q
-// and k already scaled by d_h^-0.25 and the softmax statistics in float32.
+// Non-causal multi-head self-attention for the Whisper encoder, forward:
+// out = softmax(q k^T + bias) v per (batch, head), with q and k already
+// scaled by d_h^-0.25, an optional additive key bias, and the softmax
+// statistics in float32. Optionally also writes the float32 row
+// log-sum-exp (m + log l, [B, H, T]) that the backward kernels
+// (attention_bwd.cu) recompute the probabilities from.
 //
-// Replaces the TPU kernel lyricalignment_tpu/ops/attention.py:_onepass_kernel
-// (launched by _onepass_fwd_impl / onepass_self_attention). The TPU kept a
-// whole 1536-wide score row in VMEM and did one pass; a 64 x 1500 float32
-// score tile does not fit in 227 KB of shared memory, so this kernel streams
-// 64-key tiles of K and V through shared memory with the online-softmax
-// recurrence (running row max and sum in float32, accumulator rescaled per
-// tile). The key bias is added per key; keys past `seq` (the ragged last
-// tile) are masked, so T = 1500 needs no padding to a multiple of 128.
-// q, k, v and out keep the callers' [B, T, H, 64] layout, read with row
-// stride H x 64, so no transposes. One block per (64-query tile, b x h).
+// Replaces two TPU kernels:
+// * lyricalignment_tpu/ops/attention.py:_onepass_kernel (the pad-once
+//   serving path, onepass_self_attention: key bias, no LSE);
+// * the forward of the library flash attention that
+//   lyricalignment_tpu/ops/attention.py:self_attention calls on the
+//   training path (jax/experimental/pallas/ops/tpu/flash_attention.py
+//   _flash_attention_kernel, which also saves the row statistics l, m for
+//   its backward): no bias, LSE written.
+// The TPU kept a whole 1536-wide score row in VMEM and did one pass; a
+// 64 x 1500 float32 score tile does not fit in 227 KB of shared memory, so
+// this kernel streams 64-key tiles of K and V through shared memory with the
+// online-softmax recurrence (running row max and sum in float32, accumulator
+// rescaled per tile). Keys past `seq` (the ragged last tile) are masked, so
+// T = 1500 needs no padding to a multiple of 128 (the library pads to 1536
+// and masks with segment ids). q, k, v and out keep the callers'
+// [B, T, H, 64] layout, read with row stride H x 64, so no transposes. One
+// block per (64-query tile, b x h).
 //
 // Bound on H100: operations. Per encoder layer at whisper-medium, B = 16,
 // H = 16, T = 1500, d_h = 64: 4 x 256 x 1500^2 x 64 = 147 GFLOP of QK^T and
@@ -26,41 +36,36 @@
 //   (attention.py:126-130). A wgmma/TMA version is later work.
 // * float32: the CUDA cores, each thread holding a 4 x 4 register tile of
 //   scores and of the output (full float32, no TF32).
-#include <mma.h>
-
-#include "common.cuh"
+// The bias and the LSE output are template switches, so the serving
+// instantiation (bias, no LSE) runs the same code as before they existed.
+#include "attention.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head width (every Whisper size)
-constexpr int kBQ = 64;       // queries per block
-constexpr int kBK = 64;       // keys per streamed tile
-constexpr int kLd = kD + 1;   // padded shared-memory row: conflict-free columns
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 tile each
-constexpr int kSmemBytes = (3 * kBQ * kLd + kBK * kD) * sizeof(float);
+using namespace la::attn;
+
+constexpr int kSmemBytes = (3 * kTile * kLd + kTile * kD) * sizeof(float);
 
 // ---- float32 on the CUDA cores -----------------------------------------
 
+template <bool kBias, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ bias,
-                      float* __restrict__ out, int seq, int heads) {
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     float* __restrict__ out, float* __restrict__ lse, int seq, int heads) {
   extern __shared__ float smem[];
-  float* qs = smem;              // [kBQ][kLd]
-  float* ks = qs + kBQ * kLd;    // [kBK][kLd]
-  float* ps = ks + kBK * kLd;    // [kBQ][kLd]  probabilities of the tile
-  float* vs = ps + kBQ * kLd;    // [kBK][kD]
+  float* qs = smem;               // [kTile][kLd]
+  float* ks = qs + kTile * kLd;   // [kTile][kLd]
+  float* ps = ks + kTile * kLd;   // [kTile][kLd]  probabilities of the tile
+  float* vs = ps + kTile * kLd;   // [kTile][kD]
 
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kTile;
   const size_t row_stride = (size_t)heads * kD;
   const size_t base = (size_t)b * seq * row_stride + (size_t)h * kD;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  for (int i = threadIdx.x; i < kBQ * kD; i += kThreads) {
-    const int r = i / kD, c = i % kD, t = q0 + r;
-    qs[r * kLd + c] = t < seq ? q[base + t * row_stride + c] : 0.f;
-  }
+  load_tile_f32(qs, q, base, row_stride, q0, seq);
 
   // rows ty + 16 i, output / key columns tx + 16 j
   float m[4], l[4], acc[4][4];
@@ -72,9 +77,9 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < seq; k0 += kBK) {
+  for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();  // the previous tile's ks / vs / ps are consumed
-    for (int i = threadIdx.x; i < kBK * kD; i += kThreads) {
+    for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
       const int r = i / kD, c = i % kD, t = k0 + r;
       const bool in = t < seq;
       ks[r * kLd + c] = in ? k[base + t * row_stride + c] : 0.f;
@@ -101,7 +106,7 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int t = k0 + tx + 16 * j;
-      const float bj = t < seq ? bias[t] : 0.f;
+      const float bj = (kBias && t < seq) ? bias[t] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[i][j] = t < seq ? s[i][j] + bj : -INFINITY;
     }
@@ -125,7 +130,7 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    for (int kk = 0; kk < kBK; ++kk) {
+    for (int kk = 0; kk < kTile; ++kk) {
       float pv[4], vv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kLd + kk];
@@ -146,53 +151,44 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       out[base + t * row_stride + tx + 16 * j] = acc[i][j] * inv;
+    if (kLse && tx == 0) lse[(size_t)blockIdx.y * seq + t] = m[i] + logf(l[i]);
   }
 }
 
 // ---- bf16 on the tensor cores ------------------------------------------
 
-namespace tc {
+namespace tcf {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+using tc::bf16;
+using tc::FragA;
+using tc::FragAcc;
+using tc::FragBCol;
+using tc::FragBRow;
+using tc::kLdf;
+using tc::kLdh;
+using tc::load_strip;
+using tc::load_tile;
+constexpr int kThreads = tc::kThreads;
 
-constexpr int kWarps = 4;              // one 16-query strip each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 16 * kWarps;       // 64 queries per block
-constexpr int kLdh = kD + 8;           // bf16 row stride: 16-byte rows, ldm % 8 == 0
-constexpr int kLdf = kBK + 4;          // float row stride: ldm % 4 == 0
-constexpr int kSmemBytes = 4 * kBQ * kLdh * sizeof(bf16)   // Q, K, V, P
-                           + 2 * kBQ * kLdf * sizeof(float);  // S, O
-static_assert(kBK == kBQ && kD == kBK, "one stride serves Q, K, V, P, S and O");
+constexpr int kSmemBytes = 4 * kTile * kLdh * sizeof(bf16)     // Q, K, V, P
+                           + 2 * kTile * kLdf * sizeof(float);  // S, O
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t base,
-                                          size_t row_stride, int t0, int seq) {
-  // 64 rows of 64 bf16 = 8 x 16 bytes a row; rows past seq are zero
-  for (int i = threadIdx.x; i < kBK * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8, t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < seq) val = *reinterpret_cast<const uint4*>(src + base + t * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = val;
-  }
-}
-
+template <bool kBias, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const float* __restrict__ bias,
-                      bf16* __restrict__ out, int seq, int heads) {
+attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ lse, int seq, int heads) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kBQ * kLdh;
-  bf16* vs = ks + kBK * kLdh;
-  bf16* ps = vs + kBK * kLdh;                         // probabilities, bf16
-  float* ss = reinterpret_cast<float*>(ps + kBQ * kLdh);  // scores
-  float* os = ss + kBQ * kLdf;                        // output accumulator
+  bf16* ks = qs + kTile * kLdh;
+  bf16* vs = ks + kTile * kLdh;
+  bf16* ps = vs + kTile * kLdh;                            // probabilities, bf16
+  float* ss = reinterpret_cast<float*>(ps + kTile * kLdh);  // scores
+  float* os = ss + kTile * kLdf;                           // output accumulator
 
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kTile;
   const size_t row_stride = (size_t)heads * kD;
   const size_t base = (size_t)b * seq * row_stride + (size_t)h * kD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -200,26 +196,24 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row = warp * 16 + lane / 2, half = lane % 2;
 
   load_tile(qs, q, base, row_stride, q0, seq);
-  for (int i = threadIdx.x; i < kBQ * kD; i += kThreads) os[(i / kD) * kLdf + i % kD] = 0.f;
+  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) os[(i / kD) * kLdf + i % kD] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < seq; k0 += kBK) {
+  for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();  // Q / O ready; the previous tile's K and V consumed
     load_tile(ks, k, base, row_stride, k0, seq);
     load_tile(vs, v, base, row_stride, k0, seq);
     __syncthreads();
 
     FragA a[kD / 16];
+    load_strip(a, qs, warp);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wmma::load_matrix_sync(a[kk], qs + warp * 16 * kLdh + kk * 16, kLdh);
-#pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
+    for (int n = 0; n < kTile / 16; ++n) {
       FragAcc s;
       wmma::fill_fragment(s, 0.f);
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+        FragBCol kb;
         wmma::load_matrix_sync(kb, ks + n * 16 * kLdh + kk * 16, kLdh);
         wmma::mma_sync(s, a[kk], kb, s);
       }
@@ -227,11 +221,11 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    float x[kBK / 2], mx = -INFINITY;
+    float x[kTile / 2], mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
+    for (int j = 0; j < kTile / 2; ++j) {
       const int c = 2 * j + half, t = k0 + c;
-      x[j] = t < seq ? ss[row * kLdf + c] + bias[t] : -INFINITY;
+      x[j] = t < seq ? ss[row * kLdf + c] + (kBias ? bias[t] : 0.f) : -INFINITY;
       mx = fmaxf(mx, x[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -239,7 +233,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float scale = expf(m - m_new);
     float rs = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
+    for (int j = 0; j < kTile / 2; ++j) {
       const float p = expf(x[j] - m_new);
       ps[row * kLdh + 2 * j + half] = __float2bfloat16_rn(p);
       rs += p;
@@ -249,17 +243,15 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m = m_new;
     __syncwarp();
 
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wmma::load_matrix_sync(a[kk], ps + warp * 16 * kLdh + kk * 16, kLdh);
+    load_strip(a, ps, warp);
 #pragma unroll
     for (int n = 0; n < kD / 16; ++n) {
       FragAcc o;
       float* o_ptr = os + warp * 16 * kLdf + n * 16;
       wmma::load_matrix_sync(o, o_ptr, kLdf, wmma::mem_row_major);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragBRow vb;
         wmma::load_matrix_sync(vb, vs + kk * 16 * kLdh + n * 16, kLdh);
         wmma::mma_sync(o, a[kk], vb, o);
       }
@@ -275,44 +267,58 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int c = 2 * j + half;
       out[base + t * row_stride + c] = __float2bfloat16_rn(os[row * kLdf + c] / l);
     }
+    if (kLse && half == 0) lse[(size_t)blockIdx.y * seq + t] = m + logf(l);
   }
 }
 
-}  // namespace tc
+}  // namespace tcf
 
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* bias,
-                        void* out, int batch, int seq, int heads, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tc::bias_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + tc::kBQ - 1) / tc::kBQ, batch * heads);
-  tc::bias_attention_kernel<<<grid, tc::kThreads, tc::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), seq, heads);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* bias,
-                       void* out, int batch, int seq, int heads, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bias_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
-  bias_attention_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(bias), static_cast<float*>(out), seq, heads);
+template <bool kBias, bool kLse>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   void* lse, int batch, int seq, int heads, bool is_bf16, cudaStream_t stream) {
+  const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
+  cudaError_t err;
+  if (is_bf16) {
+    auto kernel = tcf::attention_fwd_kernel<kBias, kLse>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tcf::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, tc::kThreads, tcf::kSmemBytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), seq, heads);
+  } else {
+    auto kernel = attention_fwd_kernel<kBias, kLse>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(lse),
+        seq, heads);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out [batch, seq, heads, 64] in float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); bias f32[seq]
+// (is_bf16 = 1); bias f32[seq] or null (no bias). Serving and evaluation:
+// no row statistics.
 LA_API int la_bias_attention(const void* q, const void* k, const void* v, const void* bias,
                              void* out, int batch, int seq, int heads, int is_bf16,
                              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(q, k, v, bias, out, batch, seq, heads, s)
-                 : launch_f32(q, k, v, bias, out, batch, seq, heads, s);
+  return bias ? launch<true, false>(q, k, v, bias, out, nullptr, batch, seq, heads, is_bf16, s)
+              : launch<false, false>(q, k, v, bias, out, nullptr, batch, seq, heads, is_bf16, s);
+}
+
+// As la_bias_attention, and also writes lse f32[batch, heads, seq], the row
+// log-sum-exp of the (biased) scores, for the backward kernels.
+LA_API int la_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
+                            void* out, void* lse, int batch, int seq, int heads, int is_bf16,
+                            void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return bias ? launch<true, true>(q, k, v, bias, out, lse, batch, seq, heads, is_bf16, s)
+              : launch<false, true>(q, k, v, bias, out, lse, batch, seq, heads, is_bf16, s);
 }

@@ -44,3 +44,10 @@ def read_data(data_path: str) -> List[Record]:
         )
     return records
 
+
+
+def read_many(*data_paths: str) -> List[Record]:
+    records: List[Record] = []
+    for path in data_paths:
+        records.extend(read_data(path))
+    return records

@@ -43,8 +43,17 @@ SIGNATURES: Dict[str, list] = {
     # padded audio, cos basis, sin basis, mel^T, band range, out, batch,
     # padded_len, n_frames, n_mels, stream
     "la_log10_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, key_bias, out, batch, seq, heads, is_bf16, stream
+    # q, k, v, key_bias (or null), out, batch, seq, heads, is_bf16, stream
     "la_bias_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, key_bias (or null), out, row lse, batch, seq, heads, is_bf16,
+    # stream
+    "la_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, key_bias (or null), dk, dv, batch, seq,
+    # heads, is_bf16, stream
+    "la_attention_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, key_bias (or null), dq, batch, seq, heads,
+    # is_bf16, stream
+    "la_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # h, w (first column row), b (first column), out, rows, feat, cols, stream
     "la_row_lse": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lab, sil, labels, num_labels, num_frames, backpointer scratch, onset,

@@ -31,17 +31,20 @@ class AlignHead(nn.Module):
 
 
 def align_head_hidden(head: AlignHead, x: torch.Tensor,
-                      lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      lengths: Optional[torch.Tensor] = None, dropout: float = 0.0,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x [B, T, D] encoder frames -> pre-classifier hidden f32[B, T, fc_in]
     (bi-GRU -> Mish, before the fc). ``lengths`` (int[B]) masks the
-    recurrences to true frame counts: valid frames equal an exact-trim run."""
+    recurrences to true frame counts: valid frames equal an exact-trim run.
+    ``dropout`` between the GRU layers is active only with a ``generator``."""
     # cuDNN runs float32 RNN matmuls in TF32 unless told otherwise
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        h = bigru_apply(head.rnn, x.float(), lengths)
+        h = bigru_apply(head.rnn, x.float(), lengths, dropout, generator)
     return mish(h)
 
 
 def align_head_apply(head: AlignHead, x: torch.Tensor,
-                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lengths: Optional[torch.Tensor] = None, dropout: float = 0.0,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x [B, T, D] -> logits f32[B, T, output_dim]."""
-    return head.fc(align_head_hidden(head, x, lengths))
+    return head.fc(align_head_hidden(head, x, lengths, dropout, generator))

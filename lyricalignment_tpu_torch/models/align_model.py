@@ -1,17 +1,20 @@
 """AlignModel: Whisper backbone + frame-wise alignment head.
 
-Port of ``lyricalignment_tpu/models/align_model.py:43-223`` for inference.
+Port of ``lyricalignment_tpu/models/align_model.py:43-223``.
 :func:`forward_from_audio` is the reference's ``frame_manual_forward``
-(`module/align_model.py:84-105`): raw audio -> log-mel -> encoder, trimmed
+(`module/align_model.py:84-121`): raw audio -> log-mel -> encoder, trimmed
 to round(mel_len / 2) frames, with audio longer than 30 s encoded as a
-batch of 30 s windows whose features are concatenated.
+batch of 30 s windows whose features are concatenated; or, for training
+(``trim_to_input_length=False``), one 30 s window with all 1500 frames.
+The align head and the teacher-forced decoder read the encoder features.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +36,10 @@ class AlignModelConfig:
     output_dim: int = 21128
     num_rnn_layers: int = 2
     bidirectional: bool = True
+    dropout: float = 0.1
+    freeze_encoder: bool = False
+    train_alignment: bool = True
+    train_transcript: bool = False
 
     @property
     def embed_dim(self) -> int:
@@ -84,45 +91,73 @@ def _half(n: int) -> int:
     return int(round(n / 2.0))
 
 
-def forward_from_audio(model: AlignModel, audio: torch.Tensor,
-                       frame_lengths: Optional[torch.Tensor] = None,
-                       mel_lengths: Optional[torch.Tensor] = None,
-                       head_output: str = "hidden") -> torch.Tensor:
-    """Raw padded audio f32[B, samples] -> the align head's output at each
-    encoder frame: the pre-classifier hidden f32[B, T', 2H]
-    (``head_output="hidden"``, for ``viterbi_align_fused``) or the logits
-    f32[B, T', C] (``"logits"``).
+def forward_from_audio(
+    model: AlignModel,
+    audio: torch.Tensor,
+    y_in: Optional[torch.Tensor] = None,
+    trim_to_input_length: bool = True,
+    generator: Optional[torch.Generator] = None,
+    remat: bool = False,
+    frame_lengths: Optional[torch.Tensor] = None,
+    mel_lengths: Optional[torch.Tensor] = None,
+    align_head_output: str = "logits",
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Raw padded audio f32[B, samples] (+ decoder input tokens ``y_in``
+    int[B, S]) -> ``(align_out, transcribe_logits)``.
 
-    ``frame_lengths`` (int[B]) masks the GRU to each sample's true encoder
-    frame count; ``mel_lengths`` (int[B], default ``2 * frame_lengths``)
-    zeroes the mel past each sample's true length, as the reference computes
-    the mel on exact-length audio and zero-pads the mel.
+    ``align_out`` (when ``cfg.train_alignment``) is the align head's output
+    at each encoder frame: the logits f32[B, T', C]
+    (``align_head_output="logits"``) or the pre-classifier hidden
+    f32[B, T', 2H] (``"hidden"``, for ``viterbi_align_fused``).
+    ``transcribe_logits`` f32[B, S, n_vocab] comes from the teacher-forced
+    decoder when ``cfg.train_transcript`` and ``y_in`` is given.
+
+    ``trim_to_input_length=False`` is training: one 30 s window, all 1500
+    frames. ``frame_lengths`` (int[B]) masks the GRU to each sample's true
+    encoder frame count; ``mel_lengths`` (int[B], default
+    ``2 * frame_lengths``) zeroes the mel past each sample's true length, as
+    the reference computes the mel on exact-length audio and zero-pads the
+    mel. ``generator`` draws the head's dropout (none without one);
+    ``remat`` checkpoints every transformer block. Under
+    ``cfg.freeze_encoder`` the encoder runs under ``torch.no_grad()``, so
+    its backward never runs.
     """
     cfg = model.cfg
-    mel = log_mel(audio, n_mels=cfg.whisper.n_mels)         # [B, n_mels, T_mel]
-    if frame_lengths is not None:
-        if mel_lengths is None:
-            mel_lengths = 2 * frame_lengths
-        t_idx = torch.arange(mel.shape[-1], device=mel.device)
-        keep = t_idx[None, None, :] < mel_lengths.to(mel.device)[:, None, None]
-        mel = torch.where(keep, mel, torch.zeros((), dtype=mel.dtype, device=mel.device))
-    t_mel = mel.shape[-1]
     encoder = model.whisper_model.encoder
+    frozen = torch.no_grad() if cfg.freeze_encoder else contextlib.nullcontext()
+    with frozen:
+        mel = log_mel(audio, n_mels=cfg.whisper.n_mels)         # [B, n_mels, T_mel]
+        if frame_lengths is not None:
+            if mel_lengths is None:
+                mel_lengths = 2 * frame_lengths
+            t_idx = torch.arange(mel.shape[-1], device=mel.device)
+            keep = t_idx[None, None, :] < mel_lengths.to(mel.device)[:, None, None]
+            mel = torch.where(keep, mel, torch.zeros((), dtype=mel.dtype, device=mel.device))
+        t_mel = mel.shape[-1]
 
-    if t_mel <= N_FRAMES:
-        embed = encoder(pad_or_trim(mel, N_FRAMES))
-        align_embed = embed[:, : _half(t_mel)]
-    else:
-        # >30 s: every window goes through the encoder in one batch
-        b, n_mels = mel.shape[:2]
-        n_chunks = -(-t_mel // N_FRAMES)
-        windows = pad_or_trim(mel, n_chunks * N_FRAMES).reshape(b, n_mels, n_chunks, N_FRAMES)
-        windows = windows.permute(0, 2, 1, 3).reshape(b * n_chunks, n_mels, N_FRAMES)
-        embeds = encoder(windows).reshape(b, n_chunks, EMBED_FRAMES, -1)
-        # full windows keep all 1500 frames, the last round(remainder / 2)
-        last_len = _half(t_mel - (n_chunks - 1) * N_FRAMES)
-        parts = [embeds[:, i] for i in range(n_chunks - 1)] + [embeds[:, -1, :last_len]]
-        align_embed = torch.cat(parts, dim=1)
+        if not trim_to_input_length or t_mel <= N_FRAMES:
+            embed = encoder(pad_or_trim(mel, N_FRAMES), remat=remat)
+            embed_for_decoder = embed
+            align_embed = embed[:, : _half(t_mel)] if trim_to_input_length else embed
+        else:
+            # >30 s: every window goes through the encoder in one batch
+            b, n_mels = mel.shape[:2]
+            n_chunks = -(-t_mel // N_FRAMES)
+            windows = pad_or_trim(mel, n_chunks * N_FRAMES).reshape(b, n_mels, n_chunks, N_FRAMES)
+            windows = windows.permute(0, 2, 1, 3).reshape(b * n_chunks, n_mels, N_FRAMES)
+            embeds = encoder(windows, remat=remat).reshape(b, n_chunks, EMBED_FRAMES, -1)
+            # full windows keep all 1500 frames, the last round(remainder / 2)
+            last_len = _half(t_mel - (n_chunks - 1) * N_FRAMES)
+            parts = [embeds[:, i] for i in range(n_chunks - 1)] + [embeds[:, -1, :last_len]]
+            align_embed = torch.cat(parts, dim=1)
+            embed_for_decoder = align_embed[:, :EMBED_FRAMES]
 
-    head_fn = {"hidden": align_head_hidden, "logits": align_head_apply}[head_output]
-    return head_fn(model.align_rnn, align_embed, frame_lengths)
+    align_out = None
+    if cfg.train_alignment:
+        head_fn = {"hidden": align_head_hidden, "logits": align_head_apply}[align_head_output]
+        align_out = head_fn(model.align_rnn, align_embed, frame_lengths, cfg.dropout, generator)
+    transcribe_logits = None
+    if cfg.train_transcript and y_in is not None:
+        transcribe_logits = model.whisper_model.decoder_logits(y_in, embed_for_decoder,
+                                                              remat=remat)
+    return align_out, transcribe_logits

@@ -1,32 +1,37 @@
-"""Whisper backbone: the audio encoder, and the decoder's parameters.
+"""Whisper backbone: the audio encoder and the teacher-forced decoder.
 
-Port of ``lyricalignment_tpu/models/whisper.py:37-123,169-175,282-482``.
+Port of ``lyricalignment_tpu/models/whisper.py:37-123,169-175,282-534``.
 Module and parameter names are the reference's ``state_dict`` names
 (``encoder.blocks.{i}.attn.query.weight``, ``decoder.token_embedding.weight``
 ...), so a reference checkpoint loads with ``load_state_dict(strict=True)``.
-The decoder is held for that load only: its forward is not part of the
-alignment path.
 
-Numerics follow the JAX encoder: pre-LN blocks, q and k each scaled by
+Numerics follow the JAX model: pre-LN blocks, q and k each scaled by
 d_h^-0.25, no bias on k, LayerNorm statistics in float32 whatever the compute
 dtype, exact or tanh GELU, and every matmul weight cast to the compute dtype
 (a no-op once :func:`bf16_resident` stored them in bfloat16). Encoder
-self-attention goes through ``ops.attention.onepass_self_attention`` with a
-zero key bias over the true 1500 frames (the kernel masks its ragged last
-tile itself, so the residual stream is not padded to a multiple of 128).
+self-attention runs on the attention kernels over the true 1500 frames (the
+kernels mask their ragged last tile themselves, so the residual stream is
+not padded to a multiple of 128): ``ops.attention.self_attention`` by
+default, as the JAX training path runs the library flash kernel, or
+``onepass_self_attention`` with a zero key bias under
+``WhisperConfig.onepass_encoder``. The decoder's causal self-attention and
+cross-attention are plain matmuls, as JAX computes them with einsum outside
+any kernel; its unembedding runs in float32.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lyricalignment_tpu_torch.ops.attention import onepass_self_attention
+from torch.utils.checkpoint import checkpoint
+
+from lyricalignment_tpu_torch.ops.attention import onepass_self_attention, self_attention
 
 
 @dataclass(frozen=True)
@@ -45,6 +50,9 @@ class WhisperConfig:
     # tanh-approximate GELU in the conv stem and every MLP (the bench's
     # bf16 setting; exact erf GELU otherwise)
     fast_gelu: bool = False
+    # encoder self-attention through onepass_self_attention (key bias) rather
+    # than self_attention; the same kernels either way, off as in JAX
+    onepass_encoder: bool = False
 
 
 def _cfg(state: int, head: int, layer: int, **kw) -> WhisperConfig:
@@ -98,16 +106,41 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
-    def self_attention(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
-        """Encoder self-attention of x [B, T, D] through the bias kernel."""
+    def _split(self, y: torch.Tensor) -> torch.Tensor:
+        b, t, d = y.shape
+        return y.view(b, t, self.n_head, d // self.n_head)
+
+    def self_attention(self, x: torch.Tensor,
+                       key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Encoder self-attention of x [B, T, D] through the attention
+        kernels: ``self_attention``, or ``onepass_self_attention`` when a
+        ``key_bias`` [1, T] is given."""
         b, t, d = x.shape
         scale = (d // self.n_head) ** -0.25
-        split = lambda y: y.view(b, t, self.n_head, d // self.n_head)
-        q = split(_linear(self.query, x)) * scale
-        k = split(_linear(self.key, x)) * scale
-        v = split(_linear(self.value, x))
-        out = onepass_self_attention(q, k, v.contiguous(), key_bias)
+        q = self._split(_linear(self.query, x)) * scale
+        k = self._split(_linear(self.key, x)) * scale
+        v = self._split(_linear(self.value, x)).contiguous()
+        out = (self_attention(q, k, v) if key_bias is None
+               else onepass_self_attention(q, k, v, key_bias))
         return _linear(self.out, out.reshape(b, t, d))
+
+    def attend(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Decoder attention as plain matmuls (``_attention``'s einsum
+        path): causal self-attention with ``mask`` [S, S], or
+        cross-attention to ``xa`` [B, T, D]."""
+        b, s, d = x.shape
+        scale = (d // self.n_head) ** -0.25
+        src = x if xa is None else xa
+        q = self._split(_linear(self.query, x)) * scale
+        k = self._split(_linear(self.key, src))
+        v = self._split(_linear(self.value, src))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k * scale)
+        if mask is not None:
+            logits = logits + mask
+        weights = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        return _linear(self.out, out.reshape(b, s, d))
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -125,11 +158,29 @@ class ResidualAttentionBlock(nn.Module):
             nn.Linear(4 * n_state, n_state))
         self.mlp_ln = nn.LayerNorm(n_state)
 
-    def encoder_forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias)
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         h = _layer_norm(self.mlp_ln, x)
-        h = _linear(self.mlp[2], self.mlp[1](_linear(self.mlp[0], h)))
-        return x + h
+        return x + _linear(self.mlp[2], self.mlp[1](_linear(self.mlp[0], h)))
+
+    def encoder_forward(self, x: torch.Tensor,
+                        key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias)
+        return self._mlp(x)
+
+    def decoder_forward(self, x: torch.Tensor, xa: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn.attend(_layer_norm(self.attn_ln, x), mask=mask)
+        x = x + self.cross_attn.attend(_layer_norm(self.cross_attn_ln, x), xa)
+        return self._mlp(x)
+
+
+def _run_block(fn, remat: bool, *args):
+    """``fn(*args)``, under ``remat`` as a non-reentrant activation
+    checkpoint (the block's forward runs again in the backward; only when
+    autograd records)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class AudioEncoder(nn.Module):
@@ -159,18 +210,22 @@ class AudioEncoder(nn.Module):
         x = x.transpose(1, 2)
         return x + self.positional_embedding[: x.shape[1]].to(dtype)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """mel f32[B, n_mels, 3000] -> audio features [B, 1500, D] in the
-        compute dtype."""
+        compute dtype. ``remat`` checkpoints each block."""
         x = self._stem(mel)
-        key_bias = torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
+        key_bias = None
+        if self.cfg.onepass_encoder:
+            key_bias = torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x = block.encoder_forward(x, key_bias)
+            x = _run_block(block.encoder_forward, remat, x, key_bias)
         return _layer_norm(self.ln_post, x)
 
 
 class TextDecoder(nn.Module):
-    """Decoder parameters (reference names); its forward is a later slice."""
+    """Whisper's text decoder (reference names); :meth:`forward` is the
+    teacher-forced ``decoder_logits``. KV-cached decoding is a later
+    slice."""
 
     def __init__(self, cfg: WhisperConfig):
         super().__init__()
@@ -182,6 +237,24 @@ class TextDecoder(nn.Module):
                                    fast_gelu=cfg.fast_gelu)
             for _ in range(cfg.n_text_layer))
         self.ln = nn.LayerNorm(d)
+        self.compute_dtype = cfg.compute_dtype
+
+    def forward(self, tokens: torch.Tensor, audio_features: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
+        """tokens int[B, S], audio_features [B, T, D] -> logits f32[B, S,
+        n_vocab]: pre-LN blocks of causal self-attention, cross-attention
+        and MLP, then the float32 unembedding by the token embedding."""
+        dtype = self.compute_dtype
+        xa = audio_features.to(dtype)
+        s = tokens.shape[1]
+        x = (self.token_embedding.weight[tokens.long()].to(dtype)
+             + self.positional_embedding[:s].to(dtype)[None])
+        mask = torch.full((s, s), torch.finfo(torch.float32).min, device=x.device)
+        mask = torch.triu(mask, diagonal=1).to(dtype)
+        for block in self.blocks:
+            x = _run_block(block.decoder_forward, remat, x, xa, mask)
+        x = _layer_norm(self.ln, x)
+        return x.float() @ self.token_embedding.weight.float().T
 
 
 class Whisper(nn.Module):
@@ -191,8 +264,13 @@ class Whisper(nn.Module):
         self.encoder = AudioEncoder(cfg)
         self.decoder = TextDecoder(cfg)
 
-    def embed_audio(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.encoder(mel)
+    def embed_audio(self, mel: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        return self.encoder(mel, remat=remat)
+
+    def decoder_logits(self, tokens: torch.Tensor, audio_features: torch.Tensor,
+                       remat: bool = False) -> torch.Tensor:
+        """The reference's ``whisper_model.logits(tokens, audio_features)``."""
+        return self.decoder(tokens, audio_features, remat=remat)
 
 
 def bf16_resident(whisper: Whisper) -> Whisper:

@@ -24,7 +24,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "lyricalignment_tpu"))
 print(len(names), bad)
-assert len(names) >= 20 and not bad, bad
+assert len(names) >= 30 and not bad, bad
 """
 
 
@@ -50,10 +50,20 @@ def test_entry_points_need_cuda_by_default(tmp_path, monkeypatch):
     data.write_text("[]")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["-f", str(data), "--model-dir", str(tmp_path), "--synthetic-vocab"])
+    from lyricalignment_tpu_torch.cli.train_multitask import main as train_main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--train-data", str(data), "--dev-data", str(data), "--synthetic-vocab",
+                    "--save-dir", str(tmp_path / "result")])
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
-    from lyricalignment_tpu_torch.ops.attention import onepass_self_attention
+    from lyricalignment_tpu_torch.ops.attention import (
+        attention_dkdv,
+        attention_dq,
+        onepass_self_attention,
+        self_attention,
+    )
     from lyricalignment_tpu_torch.ops.mel import log10_mel
     from lyricalignment_tpu_torch.ops.viterbi import row_lse, viterbi_dp
 
@@ -63,6 +73,13 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         onepass_self_attention(meta(1, 4, 1, 64), meta(1, 4, 1, 64), meta(1, 4, 1, 64),
                                meta(1, 4))
+    x = meta(1, 4, 1, 64)
+    with pytest.raises(ValueError, match="no kernel"):
+        self_attention(x.requires_grad_(), x, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        attention_dkdv(x, x, x, x, meta(1, 1, 4), meta(1, 1, 4))
+    with pytest.raises(ValueError, match="no kernel"):
+        attention_dq(x, x, x, x, meta(1, 1, 4), meta(1, 1, 4))
     with pytest.raises(ValueError, match="no kernel"):
         row_lse(meta(4, 8), meta(5, 8), meta(5))
     with pytest.raises(ValueError, match="no kernel"):

@@ -99,9 +99,10 @@ def test_hidden_states_match_jax(setup):
                          align_head_output="hidden")
     model = torch_model(s["cfg"], s["params"])
     with torch.inference_mode():
-        got = forward_from_audio(model, torch.from_numpy(audio),
-                                 frame_lengths=torch.from_numpy(frames),
-                                 mel_lengths=torch.from_numpy(mel_lens))
+        got, _ = forward_from_audio(model, torch.from_numpy(audio),
+                                    frame_lengths=torch.from_numpy(frames),
+                                    mel_lengths=torch.from_numpy(mel_lens),
+                                    align_head_output="hidden")
     assert got.shape == ref.shape
     for b, n in enumerate(frames):
         np.testing.assert_allclose(got.numpy()[b, :n], np.asarray(ref)[b, :n],

@@ -45,13 +45,22 @@ def as_jax(params):
     return jax.tree_util.tree_map(jnp.asarray, params)
 
 
+def torch_config(jax_cfg, compute_dtype=torch.float32) -> AlignModelConfig:
+    """The port's AlignModelConfig of a JAX one: the same dims and flags."""
+    jw = jax_cfg.whisper
+    wcfg = WhisperConfig(**{k: getattr(jw, k) for k in TINY_DIMS},
+                         compute_dtype=compute_dtype, fast_gelu=jw.fast_gelu,
+                         onepass_encoder=jw.onepass_encoder)
+    return AlignModelConfig(
+        whisper=wcfg, hidden_dim=jax_cfg.hidden_dim, output_dim=jax_cfg.output_dim,
+        num_rnn_layers=jax_cfg.num_rnn_layers, bidirectional=jax_cfg.bidirectional,
+        dropout=jax_cfg.dropout, freeze_encoder=jax_cfg.freeze_encoder,
+        train_alignment=jax_cfg.train_alignment, train_transcript=jax_cfg.train_transcript)
+
+
 def torch_model(jax_cfg, params, compute_dtype=torch.float32) -> AlignModel:
     """The port's AlignModel with the same weights (strict load), eval mode."""
-    wcfg = WhisperConfig(**TINY_DIMS, compute_dtype=compute_dtype,
-                         fast_gelu=jax_cfg.whisper.fast_gelu)
-    cfg = AlignModelConfig(whisper=wcfg, hidden_dim=jax_cfg.hidden_dim,
-                           output_dim=jax_cfg.output_dim)
-    model = AlignModel(cfg)
+    model = AlignModel(torch_config(jax_cfg, compute_dtype))
     model.load_state_dict(state_dict_from_jax_params(params), strict=True)
     return model.eval()
 
