@@ -9,7 +9,9 @@ NVIDIA GPU (written for the H100, sm_90a):
 2. holds each serving kernel against its plain PyTorch version at the
    shapes of the alignment main path (whisper-medium, 16 clips of 30 s, 48 labels, CTC
    head of 21129 classes), and times kernel, plain version and, where one
-   PyTorch call computes the same function, that call;
+   PyTorch call computes the same function, that call; for the bf16
+   attention forward also its row log-sum-exp (atol 1e-4), achieved
+   TFLOP/s, share of the bound and ptxas' register and spill line;
 3. serves ``LyricAligner.align_many`` on a whisper-medium AlignModel
    (random weights from a seeded generator, bf16, tanh GELU) for 8 WAV
    requests of 8-45 s, with every kernel's launch counter reset just before
@@ -33,7 +35,9 @@ NVIDIA GPU (written for the H100, sm_90a):
        edge shapes (T = 1, 63, 65, 1500; with and without a key bias;
        float32 and bf16) and at the training shape (B = 2, H = 16, T = 1500,
        bf16), and times each beside its plain version and
-       ``scaled_dot_product_attention`` forward and backward;
+       ``scaled_dot_product_attention`` forward and backward; the forward's
+       rate, share of the bound and ptxas line as in 2., and its rate at
+       B = 16 beside B = 2 (the grid's tail);
    (b) runs one ``make_train_step`` of a tiny float32 model on the GPU and
        on the CPU (plain versions) and compares losses (rtol 1e-4) and
        updates (at most 1 in 1000 entries off by more than 2e-2 lr);
@@ -86,6 +90,9 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Device ms of one call: CUDA events around ``reps`` calls that the host
+    enqueues while the device is held busy (about 1 ms of sleep a call), so
+    a call shorter than its own host-side work is timed on the device."""
     import torch
 
     for _ in range(warmup):
@@ -93,6 +100,7 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * reps))
     start.record()
     for _ in range(reps):
         fn()
@@ -108,6 +116,33 @@ def bound(ops: float, peak_ops: float, nbytes: float):
 
 def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def ptxas_report(source: str, *name_parts: str) -> str:
+    """ptxas' register and spill lines, from this run's build log, for the
+    kernels of ``source`` whose mangled names contain every ``name_parts``."""
+    from lyricalignment_tpu_torch import kernels
+
+    log = str(kernels.build_info.get("log", ""))
+    if f"== {source}\n" not in log:
+        return "not measured (no build log beside the library)"
+    lines = log.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0].splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and all(p in line for p in name_parts):
+            found.append("; ".join(x.strip().replace("ptxas info    : ", "")
+                                   for x in lines[i + 1:i + 5]
+                                   if "spill" in x or "Used" in x))
+    return " | ".join(found) or "no such kernel in the build log"
+
+
+def report_forward(name: str, ms: float, ops: float, bound_ms: float, sdpa_ms: float,
+                   mangled: str) -> None:
+    """Achieved rate, share of the bound and ptxas' line for a bf16 attention
+    forward row (the Hopper kernel's instantiations take CUtensorMaps)."""
+    log(f"[kernel] {name} bf16: {ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+        f"bound, SDPA {sdpa_ms:.4f} ms; ptxas: "
+        f"{ptxas_report('attention.cu', 'CUtensorMap', mangled)}")
 
 
 # ---------------------------------------------------------------------------
@@ -186,19 +221,27 @@ def phase_kernels(dev):
     ref = attention.einsum_bias_attention(q, k, v, bias)
     err = (got.float() - ref.float()).abs().max().item()
     rel = rel_l2(got, ref)
+    _, lse = attention.attention_forward(q, k, v, bias[0], with_lse=True)
+    _, ref_lse = attention.attention_fwd_plain(q, k, v, bias[0], with_lse=True)
+    lse_err = (lse - ref_lse).abs().max().item()
+    log(f"[kernel] bias_attention bf16 row log-sum-exp: max_abs_err={lse_err:.3e} (atol 1e-4)")
+    if lse_err > 1e-4:
+        raise AssertionError("bias_attention's row log-sum-exp disagrees with its plain version")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask = bias.to(torch.bfloat16)
     ops = 4 * B * H * T * T * D
     nbytes = 2 * 4 * q.numel() + 4 * T
+    ms = time_ms(lambda: attention.onepass_self_attention(q, k, v, bias), reps=20)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             scale=1.0), reps=20)
+    bound_ms, bound_by = bound(ops, PEAK_BF16, nbytes)
     report("bias_attention", "lyricalignment_tpu_torch/csrc/attention.cu",
            "lyricalignment_tpu/ops/attention.py:118", err,
-           f"bf16 rel_l2={rel:.3e} <= 1e-2", rel <= 1e-2,
-           time_ms(lambda: attention.onepass_self_attention(q, k, v, bias)),
+           f"bf16 rel_l2={rel:.3e} <= 1e-2", rel <= 1e-2, ms,
            time_ms(lambda: attention.einsum_bias_attention(q, k, v, bias), reps=3),
-           time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                          scale=1.0)),
-           *bound(ops, PEAK_BF16, nbytes))
-    del q, k, v, qt, kt, vt, got, ref
+           sdpa_ms, bound_ms, bound_by)
+    report_forward("bias_attention", ms, ops, bound_ms, sdpa_ms, "ILb1ELb0E")
+    del q, k, v, qt, kt, vt, got, ref, lse, ref_lse
 
     # --- kernel 3: class normaliser, 24000 rows x 21127 CTC syllable columns
     rows_h, feat = B * 1500, 768
@@ -535,6 +578,7 @@ def phase_throughput(dev, model, card):
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_H, TRAIN_T, ACCUM, TRAIN_STEPS = 2, 16, 1500, 8, 3
+TAIL_B = 16  # a batch with no tail to speak of (15.5 work items an SM)
 TRAIN_KERNELS = {"la_log10_mel": 1, "la_attention_fwd": 24, "la_attention_dkdv": 24,
                  "la_attention_dq": 24}  # a micro-batch of whisper-medium
 
@@ -622,6 +666,9 @@ def phase_train_kernels(dev):
         if not ok:
             raise AssertionError(f"training-shape attention ({dtype}) disagrees")
     bf16_errs = errs
+    if bf16_errs["lse"] > 1e-4:
+        raise AssertionError(f"training-shape bf16 row log-sum-exp off by {bf16_errs['lse']:.3e}"
+                             " (atol 1e-4)")
 
     g = torch.Generator(device=dev).manual_seed(12)
     q, k, v, dout = (torch.randn(b, t, h, d, device=dev, generator=g).mul_(0.4)
@@ -647,6 +694,16 @@ def phase_train_kernels(dev):
     dout_t = dout.transpose(1, 2)
     sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                                       retain_graph=True), reps=20)
+    # the grid's tail: B = 2 gives 256 work items of 192 queries (1.94 for
+    # each of 132 SMs); TAIL_B = 16 (2,048 items) sets the rate without one
+    qb, kb, vb = (torch.randn(TAIL_B, t, h, d, device=dev, generator=g).mul_(0.4)
+                  .to(torch.bfloat16) for _ in range(3))
+    full_ms = time_ms(lambda: attention_forward(qb, kb, vb, None, with_lse=True), reps=20)
+    del qb, kb, vb
+    rate = 4 * b * h * t * t * d / fwd_ms / 1e9
+    full_rate = 4 * TAIL_B * h * t * t * d / full_ms / 1e9
+    log(f"[train-kernels] forward tail: B={b} {rate:.1f} TFLOP/s, B={TAIL_B} {full_rate:.1f} "
+        f"TFLOP/s ({full_ms:.4f} ms): the B={b} grid runs at {rate / full_rate:.3f} of that rate")
     log(f"[train-kernels] training shape bf16 B={b} H={h} T={t}: forward {fwd_ms:.4f} ms, "
         f"dK/dV {dkdv_ms:.4f} ms, dQ {dq_ms:.4f} ms, delta (torch reduction) "
         f"{delta_ms:.4f} ms; plain forward {plain_fwd_ms:.4f} ms, plain backward "
@@ -677,6 +734,8 @@ def phase_train_kernels(dev):
                          bound_by=bound_by))
         log(f"[kernel] {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        if name == "attention_fwd":
+            report_forward(name, ms, products * product, bound_ms, lib_ms, "ILb0ELb1E")
     return rows
 
 
@@ -949,8 +1008,8 @@ def main() -> int:
 
         t0 = time.perf_counter()
         kernels.library()
-        log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-            f"({kernels.build_info.get('path')})")
+        log(f"[build] kernels {'reused' if kernels.build_info.get('cached') else 'built'} and "
+            f"loaded in {time.perf_counter() - t0:.1f} s ({kernels.build_info.get('path')})")
         log(str(kernels.build_info.get("log", "")).strip())
 
         rows = phase_kernels(dev)

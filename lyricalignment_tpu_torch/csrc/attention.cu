@@ -13,32 +13,54 @@
 //   training path (jax/experimental/pallas/ops/tpu/flash_attention.py
 //   _flash_attention_kernel, which also saves the row statistics l, m for
 //   its backward): no bias, LSE written.
-// The TPU kept a whole 1536-wide score row in VMEM and did one pass; a
-// 64 x 1500 float32 score tile does not fit in 227 KB of shared memory, so
-// this kernel streams 64-key tiles of K and V through shared memory with the
-// online-softmax recurrence (running row max and sum in float32, accumulator
-// rescaled per tile). Keys past `seq` (the ragged last tile) are masked, so
-// T = 1500 needs no padding to a multiple of 128 (the library pads to 1536
-// and masks with segment ids). q, k, v and out keep the callers'
-// [B, T, H, 64] layout, read with row stride H x 64, so no transposes. One
-// block per (64-query tile, b x h).
+// The TPU kept a whole 1536-wide score row in VMEM and did one pass; here
+// key tiles stream through shared memory with the online-softmax recurrence
+// (running row max and sum in float32, output rescaled per tile). Keys past
+// `seq` (the ragged last tile) are masked, so T = 1500 needs no padding (the
+// library pads to 1536 and masks with segment ids). q, k, v and out keep
+// the callers' [B, T, H, 64] layout, so no transposes.
 //
-// Bound on H100: operations. Per encoder layer at whisper-medium, B = 16,
-// H = 16, T = 1500, d_h = 64: 4 x 256 x 1500^2 x 64 = 147 GFLOP of QK^T and
-// PV, on bf16 inputs (989 TFLOP/s dense on the tensor cores).
-// * bf16 (the main path): tensor cores through WMMA (mma.sync) 16x16x16
-//   fragments with float32 accumulators, as the TPU kernel's bf16 MXU dots
-//   with f32 accumulation; each of 4 warps owns a 16-query strip. S and the
-//   output accumulator are staged through shared memory (WMMA fragments
-//   have no row-addressable layout), so shared-memory traffic, not the
-//   tensor cores, bounds it; p is rounded to bf16 before P V and the row sum
-//   is taken in float32 before that rounding, as on the TPU
-//   (attention.py:126-130). A wgmma/TMA version is later work.
+// Bound on H100: operations. At the serving shape (whisper-medium, B = 16,
+// H = 16, T = 1500, d_h = 64) QK^T and PV are 4 x 256 x 1500^2 x 64 =
+// 147.5 GFLOP of bf16 products a layer: 0.149 ms at 989 TFLOP/s, against
+// 25 MB of q, k, v and out (0.007 ms at 3.35 TB/s). The softmax beside the
+// products (one exp2 on the 16-a-clock MUFU unit and ~5 float32 operations a
+// score) costs about as much again on this card at d_h = 64.
+//
+// * bf16 (the main path), written for sm_90a: a persistent grid of one
+//   block per SM, each of four warpgroups, walking work items of (192
+//   queries, b x h) in steps of the grid; consecutive items share b x h, so
+//   K and V are read from L2 by the neighbouring SMs.
+//   - Warpgroup 0 is the producer: one thread loads each item's Q tile and
+//     keeps a ring of kStages K/V (and key-bias) tiles of 128 keys in
+//     flight with TMA (tensor maps over {64, H, T, B}, 128-byte swizzle,
+//     completion on mbarriers; rows past T arrive as zeros). The ring runs
+//     on across items, and the next item's Q is loaded as soon as the
+//     current one's last Q K^T has run, so its loads overlap the current
+//     item's last softmax, P V and stores. The producer hands its registers
+//     to the consumers (setmaxnreg 32 / 160).
+//   - Warpgroups 1-3 each own 64 query rows. S = Q K^T by wgmma m64n128k16
+//     from shared memory into float32 registers; the online softmax on the
+//     accumulator fragment itself: the key bias added before the max, the
+//     mask only on the ragged last tile, row max and sum over the 4 lanes
+//     that share a row, exp as ex2.approx.ftz with log2(e) folded into one
+//     FMA, the row sum taken in float32 before p is rounded to bf16; then
+//     O += P V by wgmma m64n64k16 with P as the register A operand and V
+//     read MN-major from shared memory. Only the ring goes through shared
+//     memory, and the consumers never run __syncthreads.
+//   - The output is divided by the row sum and rounded to bf16 once; the
+//     log-sum-exp is written in natural log (m + log l) for the backward.
+//   Registers set the shape: 512 threads at 128 registers fill the SM's
+//   65,536, so one block runs per SM, and three consumer warpgroups (not
+//   two) keep enough warps on each scheduler to cover the softmax's
+//   latencies. 128-key tiles keep S at 64 registers a thread. The serving
+//   shape has 8 x 256 = 2,048 work items, training's B = 2 has 256 (1.94
+//   per SM).
 // * float32: the CUDA cores, each thread holding a 4 x 4 register tile of
-//   scores and of the output (full float32, no TF32).
-// The bias and the LSE output are template switches, so the serving
-// instantiation (bias, no LSE) runs the same code as before they existed.
+//   scores and of the output (full float32, no TF32), on 64-row tiles.
+// The bias and the LSE output are template switches.
 #include "attention.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -155,156 +177,316 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16 on the tensor cores ------------------------------------------
+// ---- bf16 on Hopper: TMA ring, wgmma, softmax in registers ---------------
 
-namespace tcf {
+namespace fa {
 
-namespace wmma = nvcuda::wmma;
-using tc::bf16;
-using tc::FragA;
-using tc::FragAcc;
-using tc::FragBCol;
-using tc::FragBRow;
-using tc::kLdf;
-using tc::kLdh;
-using tc::load_strip;
-using tc::load_tile;
-constexpr int kThreads = tc::kThreads;
+using namespace la::hopper;
+using bf16 = __nv_bfloat16;
 
-constexpr int kSmemBytes = 4 * kTile * kLdh * sizeof(bf16)     // Q, K, V, P
-                           + 2 * kTile * kLdf * sizeof(float);  // S, O
+constexpr int kConsumers = 3;                // warpgroups of 64 query rows
+constexpr int kBlockQ = 64 * kConsumers;     // queries a block
+constexpr int kRows = 128;                   // keys a tile
+constexpr int kStages = 2;                   // K/V tiles in the ring
+constexpr int kThreads = 128 * (kConsumers + 1);  // warpgroup 0: the producer
+// registers a thread once the producer has handed its own over
+constexpr int kProducerRegs = 32, kConsumerRegs = 160;
+static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536, "register file");
+constexpr int kTileBytes = kRows * kD * sizeof(bf16);  // 16 KB
+constexpr int kBiasBytes = kRows * sizeof(float);
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <bool kBias, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ bias,
-                     bf16* __restrict__ out, float* __restrict__ lse, int seq, int heads) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTile * kLdh;
-  bf16* vs = ks + kTile * kLdh;
-  bf16* ps = vs + kTile * kLdh;                            // probabilities, bf16
-  float* ss = reinterpret_cast<float*>(ps + kTile * kLdh);  // scores
-  float* os = ss + kTile * kLdf;                           // output accumulator
+struct Smem {
+  bf16 q[kBlockQ * kD];  // each tile: rows of 128 bytes, 128-byte swizzle
+  bf16 k[kStages][kRows * kD];
+  bf16 v[kStages][kRows * kD];
+  float bias[kStages][kRows];
+  uint64_t q_full, q_empty, full[kStages], empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + slack to align the base to 1 KB
 
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kTile;
-  const size_t row_stride = (size_t)heads * kD;
-  const size_t base = (size_t)b * seq * row_stride + (size_t)h * kD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // softmax bookkeeping: lane owns columns 2j + half of row `row`
-  const int row = warp * 16 + lane / 2, half = lane % 2;
-
-  load_tile(qs, q, base, row_stride, q0, seq);
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) os[(i / kD) * kLdf + i % kD] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();  // Q / O ready; the previous tile's K and V consumed
-    load_tile(ks, k, base, row_stride, k0, seq);
-    load_tile(vs, v, base, row_stride, k0, seq);
-    __syncthreads();
-
-    FragA a[kD / 16];
-    load_strip(a, qs, warp);
+// Bias, mask, running row max and p = exp(s - m) in place on one key tile's
+// accumulator fragment (rows r and r + 8, columns 8 j + c, + 1); l (this
+// thread's share of the row sums) is rescaled and gains the tile's p in
+// float32. `scale` returns exp(m_old - m_new) for the output.
+template <bool kBias>
+__device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m)[2], float (&l)[2],
+                                               float (&scale)[2], const float* bias, int k0,
+                                               int seq, int lane) {
+  const int c = 2 * (lane % 4);
+  if (kBias) {
+    const float2* bias2 = reinterpret_cast<const float2*>(bias);
 #pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      FragAcc s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        FragBCol kb;
-        wmma::load_matrix_sync(kb, ks + n * 16 * kLdh + kk * 16, kLdh);
-        wmma::mma_sync(s, a[kk], kb, s);
-      }
-      wmma::store_matrix_sync(ss + warp * 16 * kLdf + n * 16, s, kLdf, wmma::mem_row_major);
+    for (int j = 0; j < 16; ++j) {
+      const float2 bj = bias2[4 * j + lane % 4];  // columns 8 j + c, + 1
+      sc[4 * j] += bj.x;
+      sc[4 * j + 1] += bj.y;
+      sc[4 * j + 2] += bj.x;
+      sc[4 * j + 3] += bj.y;
     }
-    __syncwarp();
-
-    float x[kTile / 2], mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int c = 2 * j + half, t = k0 + c;
-      x[j] = t < seq ? ss[row * kLdf + c] + (kBias ? bias[t] : 0.f) : -INFINITY;
-      mx = fmaxf(mx, x[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // key 0 is live
-    const float scale = expf(m - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const float p = expf(x[j] - m_new);
-      ps[row * kLdh + 2 * j + half] = __float2bfloat16_rn(p);
-      rs += p;
-      os[row * kLdf + 2 * j + half] *= scale;
-    }
-    l = l * scale + rs + __shfl_xor_sync(0xffffffffu, rs, 1);
-    m = m_new;
-    __syncwarp();
-
-    load_strip(a, ps, warp);
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n) {
-      FragAcc o;
-      float* o_ptr = os + warp * 16 * kLdf + n * 16;
-      wmma::load_matrix_sync(o, o_ptr, kLdf, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragBRow vb;
-        wmma::load_matrix_sync(vb, vs + kk * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(o, a[kk], vb, o);
-      }
-      wmma::store_matrix_sync(o_ptr, o, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
   }
-
-  const int t = q0 + row;
-  if (t < seq) {
+  if (k0 + kRows > seq) {  // the ragged last tile: keys past T
 #pragma unroll
-    for (int j = 0; j < kD / 2; ++j) {
-      const int c = 2 * j + half;
-      out[base + t * row_stride + c] = __float2bfloat16_rn(os[row * kLdf + c] / l);
-    }
-    if (kLse && half == 0) lse[(size_t)blockIdx.y * seq + t] = m + logf(l);
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + 8 * j + c + e >= seq) sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+  }
+  float mx[2] = {m[0], m[1]}, neg[2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    scale[i] = ex2_ftz((m[i] - mx[i]) * kLog2e);
+    m[i] = mx[i];
+    neg[i] = -mx[i] * kLog2e;
+    l[i] *= scale[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    sc[j] = ex2_ftz(fmaf(sc[j], kLog2e, neg[(j / 2) % 2]));
+    l[(j / 2) % 2] += sc[j];
   }
 }
 
-}  // namespace tcf
+// p rounded to bf16 straight into the A fragments of P V: accumulator
+// columns 16 kk .. 16 kk + 15 are the k16 slice kk
+__device__ __forceinline__ void to_a_fragments(const float (&p)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pa[j / 2][2 * (j % 2)] = pack_bf16(p[4 * j], p[4 * j + 1]);          // row r
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);  // row r + 8
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], const float (&scale)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j] *= scale[0];
+    o[4 * j + 1] *= scale[0];
+    o[4 * j + 2] *= scale[1];
+    o[4 * j + 3] *= scale[1];
+  }
+}
+
+// S = Q K^T, issued and committed as one group: 4 steps of k16 along d_h,
+// both operands K-major; a step is 32 bytes into the swizzled 128-byte rows
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t desc_q, const bf16* k_tile) {
+  const uint64_t desc_k = sw128_desc(k_tile, 16, 1024);
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_m64n128k16_ss(sc, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+  wgmma_commit();
+}
+
+// O += P V, one group: 8 steps of k16 along the keys; V [key][d_h] is the
+// MN-major B operand, a step is 16 rows = 2048 bytes
+__device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&pa)[8][4],
+                                         const bf16* v_tile) {
+  const uint64_t desc_v = sw128_desc(v_tile, 1024, 1024);
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs_tb(o, pa[kk], desc_v + 128 * kk);
+  wgmma_commit();
+}
+
+template <bool kBias, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_bias, bf16* __restrict__ out,
+                     float* __restrict__ lse, int seq, int heads, int n_work) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int n_qblocks = (seq + kBlockQ - 1) / kBlockQ;
+  const int n_tiles = (seq + kRows - 1) / kRows;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, 4 * kConsumers);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * kConsumers);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every load
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0, n = 0;  // key tiles and work items so far
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++n) {
+        const int bh = w / n_qblocks, q0 = (w % n_qblocks) * kBlockQ;
+        const int b = bh / heads, h = bh % heads;
+        mbar_wait(&sm.q_empty, (n & 1) ^ 1);  // the previous item's Q K^T are done
+        mbar_arrive_expect_tx(&sm.q_full, kBlockQ * kD * sizeof(bf16));
+        tma_load_4d(sm.q, &tm_q, &sm.q_full, 0, h, q0, b);
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % kStages, k0 = t * kRows;
+          mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);  // first pass: free
+          mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes + (kBias ? kBiasBytes : 0));
+          tma_load_4d(sm.k[s], &tm_k, &sm.full[s], 0, h, k0, b);
+          tma_load_4d(sm.v[s], &tm_v, &sm.full[s], 0, h, k0, b);
+          if (kBias) tma_load_1d(sm.bias[s], &tm_bias, &sm.full[s], k0);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    // accumulator fragment: this thread holds rows r and r + 8 of the
+    // warpgroup's 64, columns 8 j + c, + 1 of each 8-column group j
+    const int r = 64 * (wg - 1) + 16 * warp + lane / 4, c = 2 * (lane % 4);
+    const uint64_t desc_q = sw128_desc(sm.q + 64 * (wg - 1) * kD, 16, 1024);
+    float o[32], sc[64], scale[2];
+    uint32_t pa[8][4];
+    int it = 0, n = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++n) {
+      const int bh = w / n_qblocks, q0 = (w % n_qblocks) * kBlockQ;
+      const int b = bh / heads, h = bh % heads;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      mbar_wait(&sm.q_full, n & 1);
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sm.full[s], (it / kStages) & 1);
+        issue_qk(sc, desc_q, sm.k[s]);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (t == n_tiles - 1) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&sm.q_empty);  // the next item's Q may load
+        }
+        online_softmax<kBias>(sc, m, l, scale, sm.bias[s], t * kRows, seq, lane);
+        to_a_fragments(sc, pa);
+        rescale(o, scale);
+        issue_pv(o, pa, sm.v[s]);
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[s]);  // the stage may be refilled
+      }
+      const size_t row_stride = (size_t)heads * kD;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const int tq = q0 + r + 8 * i;
+        if (tq >= seq) continue;
+        bf16* dst = out + ((size_t)b * seq + tq) * row_stride + (size_t)h * kD + c;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] / l[i], o[4 * j + 2 * i + 1] / l[i]);
+        if (kLse && lane % 4 == 0) lse[(size_t)bh * seq + tq] = m[i] + logf(l[i]);
+      }
+    }
+  }
+}
+
+// [B, T, H, 64] bf16 as the 4-D tensor {64, H, T, B} (innermost first), in
+// boxes of one head's 64 values for box_rows rows of T; rows past T read as
+// zero
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
+                        int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = kD * sizeof(bf16);
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// f32[T] key bias in boxes of 128; entries past T read as zero (masked anyway)
+cudaError_t encode_bias(CUtensorMap* map, const void* ptr, int seq) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)seq};
+  const cuuint64_t strides[1] = {sizeof(float)};  // not read for rank 1
+  const cuuint32_t box[1] = {(cuuint32_t)kRows};
+  const cuuint32_t elem[1] = {1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool kBias, bool kLse>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   void* lse, int batch, int seq, int heads, cudaStream_t stream) {
+  CUtensorMap maps[4] = {};  // q, k, v, bias (left zero without a bias)
+  cudaError_t err;
+  const void* srcs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if ((err = encode_rows(&maps[i], srcs[i], batch, seq, heads, i ? kRows : kBlockQ)) !=
+        cudaSuccess)
+      return err;
+  if (kBias && (err = encode_bias(&maps[3], bias, seq)) != cudaSuccess) return err;
+  auto kernel = attention_fwd_kernel<kBias, kLse>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int n_work = (seq + kBlockQ - 1) / kBlockQ * batch * heads;
+  kernel<<<n_work < sms ? n_work : sms, kThreads, kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(out), static_cast<float*>(lse),
+      seq, heads, n_work);
+  return cudaGetLastError();
+}
+
+}  // namespace fa
 
 template <bool kBias, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    void* lse, int batch, int seq, int heads, bool is_bf16, cudaStream_t stream) {
+  if (is_bf16)
+    return fa::launch<kBias, kLse>(q, k, v, bias, out, lse, batch, seq, heads, stream);
   const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
-  cudaError_t err;
-  if (is_bf16) {
-    auto kernel = tcf::attention_fwd_kernel<kBias, kLse>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               tcf::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, tc::kThreads, tcf::kSmemBytes, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), seq, heads);
-  } else {
-    auto kernel = attention_fwd_kernel<kBias, kLse>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(lse),
-        seq, heads);
-  }
+  auto kernel = attention_fwd_kernel<kBias, kLse>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(lse), seq,
+      heads);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out [batch, seq, heads, 64] in float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); bias f32[seq] or null (no bias). Serving and evaluation:
-// no row statistics.
+// (is_bf16 = 1), 16-byte aligned; bias f32[seq] (16-byte aligned) or null
+// (no bias). Serving and evaluation: no row statistics.
 LA_API int la_bias_attention(const void* q, const void* k, const void* v, const void* bias,
                              void* out, int batch, int seq, int heads, int is_bf16,
                              void* stream) {

@@ -1,8 +1,10 @@
 // Tiling shared by the encoder attention kernels (attention.cu: forward,
 // attention_bwd.cu: dK/dV and dQ). q, k, v, out and their gradients keep
 // the callers' [B, T, H, 64] layout, read with row stride H x 64; the row
-// statistics (log-sum-exp, delta) are float32 [B, H, T]. Every kernel works
-// on 64-row tiles and masks rows past `seq` itself, so T needs no padding.
+// statistics (log-sum-exp, delta) are float32 [B, H, T]. Every kernel masks
+// rows past `seq` itself, so T needs no padding. The float32 kernels and
+// the bf16 backward work on the 64-row tiles below; the bf16 forward has
+// its own Hopper tiling (attention.cu, hopper.cuh).
 #pragma once
 
 #include <mma.h>

@@ -7,7 +7,9 @@ started together, and the objects are linked into
 covers the sources and the flags, so an edited kernel is rebuilt on first
 use and an unchanged one is reused. The C launchers take raw pointers and
 the stream as ``void*`` and ints as ``int``, and return the launch's
-``cudaError_t``; :func:`launch` raises on anything but 0.
+``cudaError_t``; :func:`launch` raises on anything but 0. The build's
+output (ptxas' register and spill report) is kept beside the library as
+``libla_kernels-<hash>.log`` and read back when the library is reused.
 
 Nothing here runs at import: the first :func:`library` call builds (on a
 machine with ``nvcc``) and loads. A machine without a CUDA toolkit raises
@@ -102,8 +104,10 @@ def build() -> Path:
     """Compile the sources (in parallel) and link; return the library path.
     Reuses a library already built from the same sources and flags."""
     target = BUILD_DIR / f"libla_kernels-{_digest()}.so"
+    log_path = target.with_suffix(".log")  # nvcc's and ptxas' output of the build
     if target.exists():
-        build_info.update(seconds=0.0, log="(cached)", path=str(target))
+        log = log_path.read_text() if log_path.exists() else ""
+        build_info.update(seconds=0.0, log=log, path=str(target), cached=True)
         return target
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -126,6 +130,7 @@ def build() -> Path:
                 failed.append(name)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        log = "\n".join(logs)
         tmp_so = os.path.join(tmp, target.name)
         link = subprocess.run(
             [nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp_so]
@@ -133,9 +138,12 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        tmp_log = os.path.join(tmp, log_path.name)
+        Path(tmp_log).write_text(log)
+        os.replace(tmp_log, log_path)
         os.replace(tmp_so, target)  # atomic: concurrent processes agree
-    build_info.update(seconds=time.perf_counter() - t0, log="\n".join(logs),
-                      path=str(target))
+    build_info.update(seconds=time.perf_counter() - t0, log=log, path=str(target),
+                      cached=False)
     return target
 
 

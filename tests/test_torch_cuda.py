@@ -45,40 +45,80 @@ def test_log10_mel(dev, seconds, n_mels):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
+def _key_bias(kind, seq, dev, g):
+    """[1, seq] f32 key bias: "none" zeros, "random" noise with the last
+    quarter of the keys masked (-1e9, never all of them), "first_key" -1e9
+    on every key but the first."""
+    bias = torch.zeros(1, seq, device=dev)
+    if kind == "random":
+        bias += torch.randn(1, seq, device=dev, generator=g) * 0.5
+        bias[0, seq - seq // 4:] = -1e9
+    elif kind == "first_key":
+        bias[0, 1:] = -1e9
+    return bias
+
+
+# T around the 128-row tiles of the bf16 kernel (and the float32 kernel's 64):
+# ragged last query and key tiles, one key, the encoder's 1500
+SEQS = [1, 50, 64, 127, 128, 129, 130, 255, 1500]
+
+
+@pytest.mark.parametrize("batch,heads", [(2, 3)])
+@pytest.mark.parametrize("bias_kind", ["random", "first_key"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("seq", [1, 50, 64, 130, 1500])
-def test_bias_attention(dev, seq, dtype):
+@pytest.mark.parametrize("seq", SEQS)
+def test_bias_attention(dev, seq, dtype, bias_kind, batch, heads):
+    _bias_attention_case(dev, seq, dtype, bias_kind, batch, heads)
+
+
+def test_bias_attention_serving_shape(dev):
+    """The serving shape: B x H = 16 x 16, T = 1500, bf16."""
+    _bias_attention_case(dev, 1500, torch.bfloat16, "random", 16, 16)
+
+
+def _bias_attention_case(dev, seq, dtype, bias_kind, batch, heads):
+    """Kernel vs the plain einsum: float32 atol 1e-4, bf16 rel-L2 1e-2; the
+    row log-sum-exp against ``attention_fwd_plain(with_lse=True)`` within
+    atol 1e-4; two runs bit-equal (no atomics)."""
     from lyricalignment_tpu_torch.ops.attention import (
+        attention_forward,
+        attention_fwd_plain,
         einsum_bias_attention,
         onepass_self_attention,
     )
 
     g = _gen(seq)
-    q, k, v = (torch.randn(2, seq, 3, 64, device=dev, generator=g).to(dtype) * 0.4
+    q, k, v = (torch.randn(batch, seq, heads, 64, device=dev, generator=g).to(dtype) * 0.4
                for _ in range(3))
-    bias = torch.randn(1, seq, device=dev, generator=g) * 0.5
-    bias[0, seq - seq // 4:] = -1e9  # masked keys, never all of them
+    bias = _key_bias(bias_kind, seq, dev, g)
     got = onepass_self_attention(q, k, v, bias)
     ref = einsum_bias_attention(q, k, v, bias)
     assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, onepass_self_attention(q, k, v, bias))
     if dtype == torch.float32:
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
     else:
         rel = (got.double() - ref.double()).norm() / ref.double().norm()
         assert rel < 1e-2, float(rel)
+    _, lse = attention_forward(q, k, v, bias[0], with_lse=True)
+    _, ref_lse = attention_fwd_plain(q.float(), k.float(), v.float(), bias[0], with_lse=True)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("seq", [1, 63, 65, 200])
+@pytest.mark.parametrize("seq", [1, 63, 65, 127, 128, 129, 200, 255, 1500])
 def test_attention_forward_and_backward(dev, seq, with_bias, dtype):
     """Forward with the row log-sum-exp, then the dK/dV and dQ kernels
     under autograd, against autograd through the plain float32 einsum:
     float32 atol 1e-4; bf16 rel-L2 1e-2 (bf16 inputs, P and dS rounded to
-    bf16 before their products)."""
+    bf16 before their products). The log-sum-exp against
+    ``attention_fwd_plain(with_lse=True)`` within atol 1e-4, and the
+    forward bit-equal from run to run."""
     from lyricalignment_tpu_torch import kernels
     from lyricalignment_tpu_torch.ops.attention import (
         attention_forward,
+        attention_fwd_plain,
         einsum_bias_attention,
         onepass_self_attention,
         self_attention,
@@ -87,10 +127,7 @@ def test_attention_forward_and_backward(dev, seq, with_bias, dtype):
     g = _gen(seq + 7 * with_bias)
     q, k, v, dout = (torch.randn(2, seq, 3, 64, device=dev, generator=g) * 0.4
                      for _ in range(4))
-    bias = torch.zeros(1, seq, device=dev)
-    if with_bias:
-        bias += torch.randn(1, seq, device=dev, generator=g) * 0.5
-        bias[0, seq - seq // 4:] = -1e9  # masked keys, never all of them
+    bias = _key_bias("random" if with_bias else "none", seq, dev, g)
     leaves = [x.to(dtype).requires_grad_() for x in (q, k, v)]
     kernels.reset_launch_counts()
     out = (onepass_self_attention(*leaves, bias) if with_bias else self_attention(*leaves))
@@ -101,10 +138,12 @@ def test_attention_forward_and_backward(dev, seq, with_bias, dtype):
     ref_leaves = [x.detach().float().requires_grad_() for x in leaves]
     ref = einsum_bias_attention(*ref_leaves, bias)
     ref.backward(dout.to(dtype).float())
-    _, lse = attention_forward(*(x.detach() for x in leaves),
-                               bias[0] if with_bias else None, with_lse=True)
-    ref_lse = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", *(x.detach() for x in ref_leaves[:2]))
-                              + bias[0], dim=-1)
+    inputs = [x.detach() for x in leaves]
+    key_bias = bias[0] if with_bias else None
+    fwd, lse = attention_forward(*inputs, key_bias, with_lse=True)
+    fwd2, lse2 = attention_forward(*inputs, key_bias, with_lse=True)
+    assert torch.equal(fwd, fwd2) and torch.equal(lse, lse2)
+    _, ref_lse = attention_fwd_plain(*(x.float() for x in inputs), key_bias, with_lse=True)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     pairs = [(out.detach(), ref.detach())] + [(a.grad, b.grad) for a, b in zip(leaves, ref_leaves)]
     for got, want in pairs:
@@ -201,6 +240,16 @@ def test_bias_attention_refuses_other_head_widths(dev):
     x = torch.zeros(1, 8, 2, 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         onepass_self_attention(x, x, x, torch.zeros(1, 8, device=dev))
+
+
+def test_bias_attention_refuses_an_unaligned_bias(dev):
+    """The bf16 forward reads the key bias with TMA: 16-byte aligned only."""
+    from lyricalignment_tpu_torch.ops.attention import onepass_self_attention
+
+    x = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(1, 9, device=dev)[:, 1:]  # 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        onepass_self_attention(x, x, x, bias)
 
 
 @pytest.mark.parametrize("rows,cols", [(1, 5), (63, 127), (200, 300), (1000, 4229)])
