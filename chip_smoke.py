@@ -32,12 +32,12 @@ NVIDIA GPU (written for the H100, sm_90a):
 6. phase "train", the multitask training path:
    (a) holds the training attention kernels (forward with the row
        log-sum-exp, dK/dV, dQ) against autograd through the plain einsum at
-       edge shapes (T = 1, 63, 65, 1500; with and without a key bias;
-       float32 and bf16) and at the training shape (B = 2, H = 16, T = 1500,
-       bf16), and times each beside its plain version and
-       ``scaled_dot_product_attention`` forward and backward; the forward's
-       rate, share of the bound and ptxas line as in 2., and its rate at
-       B = 16 beside B = 2 (the grid's tail);
+       edge shapes (T = 1, 63, 65, 1500, with and without a key bias, and
+       T = 127, 129 with one; float32 and bf16) and at the training shape
+       (B = 2, H = 16, T = 1500, bf16), and times each beside its plain
+       version and ``scaled_dot_product_attention`` forward and backward;
+       each kernel's rate, share of the bound and ptxas line as in 2., and
+       its rate at B = 16 beside B = 2 (the grid's tail);
    (b) runs one ``make_train_step`` of a tiny float32 model on the GPU and
        on the CPU (plain versions) and compares losses (rtol 1e-4) and
        updates (at most 1 in 1000 entries off by more than 2e-2 lr);
@@ -136,13 +136,13 @@ def ptxas_report(source: str, *name_parts: str) -> str:
     return " | ".join(found) or "no such kernel in the build log"
 
 
-def report_forward(name: str, ms: float, ops: float, bound_ms: float, sdpa_ms: float,
-                   mangled: str) -> None:
+def report_rate(name: str, ms: float, ops: float, bound_ms: float, sdpa_ms: float,
+                source: str, mangled: str, sdpa_text: str = "SDPA") -> None:
     """Achieved rate, share of the bound and ptxas' line for a bf16 attention
-    forward row (the Hopper kernel's instantiations take CUtensorMaps)."""
+    row (the Hopper kernels' instantiations take CUtensorMaps)."""
     log(f"[kernel] {name} bf16: {ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
-        f"bound, SDPA {sdpa_ms:.4f} ms; ptxas: "
-        f"{ptxas_report('attention.cu', 'CUtensorMap', mangled)}")
+        f"bound, {sdpa_text} {sdpa_ms:.4f} ms; ptxas: "
+        f"{ptxas_report(source, 'CUtensorMap', mangled)}")
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +240,7 @@ def phase_kernels(dev):
            f"bf16 rel_l2={rel:.3e} <= 1e-2", rel <= 1e-2, ms,
            time_ms(lambda: attention.einsum_bias_attention(q, k, v, bias), reps=3),
            sdpa_ms, bound_ms, bound_by)
-    report_forward("bias_attention", ms, ops, bound_ms, sdpa_ms, "ILb1ELb0E")
+    report_rate("bias_attention", ms, ops, bound_ms, sdpa_ms, "attention.cu", "ILb1ELb0E")
     del q, k, v, qt, kt, vt, got, ref, lse, ref_lse
 
     # --- kernel 3: class normaliser, 24000 rows x 21127 CTC syllable columns
@@ -638,22 +638,23 @@ def phase_train_kernels(dev):
         einsum_attention,
     )
 
-    for t in (1, 63, 65, 1500):
-        for with_bias in (False, True):
-            for dtype in (torch.float32, torch.bfloat16):
-                errs, rels = _attention_case(dev, 2, t, 3, dtype, with_bias, seed=t)
-                if dtype == torch.float32:
-                    ok, text = max(errs.values()) <= 1e-4, f"max_abs={max(errs.values()):.2e}"
-                else:
-                    ok = errs["lse"] <= 1e-3 and max(
-                        rels[n] for n in ("out", "dq", "dk", "dv")) <= 1e-2
-                    text = (f"rel_l2 out/dq/dk/dv = {rels['out']:.2e}/{rels['dq']:.2e}/"
-                            f"{rels['dk']:.2e}/{rels['dv']:.2e}, lse {errs['lse']:.2e}")
-                log(f"[train-kernels] T={t} bias={with_bias} {str(dtype)[6:]}: {text} "
-                    f"{'OK' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError("attention training kernels disagree with autograd "
-                                         f"through the plain einsum at T={t}")
+    # the key-bias route also next to the 128-row tiles of the bf16 kernels
+    cases = [(t, with_bias) for t in (1, 63, 65, 1500) for with_bias in (False, True)]
+    for t, with_bias in cases + [(127, True), (129, True)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs, rels = _attention_case(dev, 2, t, 3, dtype, with_bias, seed=t)
+            if dtype == torch.float32:
+                ok, text = max(errs.values()) <= 1e-4, f"max_abs={max(errs.values()):.2e}"
+            else:
+                ok = errs["lse"] <= 1e-3 and max(
+                    rels[n] for n in ("out", "dq", "dk", "dv")) <= 1e-2
+                text = (f"rel_l2 out/dq/dk/dv = {rels['out']:.2e}/{rels['dq']:.2e}/"
+                        f"{rels['dk']:.2e}/{rels['dv']:.2e}, lse {errs['lse']:.2e}")
+            log(f"[train-kernels] T={t} bias={with_bias} {str(dtype)[6:]}: {text} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("attention training kernels disagree with autograd "
+                                     f"through the plain einsum at T={t}")
 
     # the training shape: whisper-medium micro-batch, B = 2, H = 16, T = 1500
     b, t, h, d = TRAIN_B, TRAIN_T, TRAIN_H, 64
@@ -699,11 +700,26 @@ def phase_train_kernels(dev):
     qb, kb, vb = (torch.randn(TAIL_B, t, h, d, device=dev, generator=g).mul_(0.4)
                   .to(torch.bfloat16) for _ in range(3))
     full_ms = time_ms(lambda: attention_forward(qb, kb, vb, None, with_lse=True), reps=20)
-    del qb, kb, vb
     rate = 4 * b * h * t * t * d / fwd_ms / 1e9
     full_rate = 4 * TAIL_B * h * t * t * d / full_ms / 1e9
     log(f"[train-kernels] forward tail: B={b} {rate:.1f} TFLOP/s, B={TAIL_B} {full_rate:.1f} "
         f"TFLOP/s ({full_ms:.4f} ms): the B={b} grid runs at {rate / full_rate:.3f} of that rate")
+    # the backward pair's: at B = 2 dK/dV has 384 work items of 128 keys
+    # (2.91 for each SM) and dQ 256 of 192 queries (1.94), 8 times that at
+    # TAIL_B
+    doutb = torch.randn(TAIL_B, t, h, d, device=dev, generator=g).mul_(0.4).to(torch.bfloat16)
+    outb, lseb = attention_forward(qb, kb, vb, None, with_lse=True)
+    deltab = attention_delta(outb, doutb)
+    del outb
+    for name, products, small_ms, fn in (("dK/dV", 4, dkdv_ms, attention_dkdv),
+                                         ("dQ", 3, dq_ms, attention_dq)):
+        full_ms = time_ms(lambda: fn(qb, kb, vb, doutb, lseb, deltab), reps=10)
+        rate = 2 * products * b * h * t * t * d / small_ms / 1e9
+        full_rate = 2 * products * TAIL_B * h * t * t * d / full_ms / 1e9
+        log(f"[train-kernels] {name} tail: B={b} {rate:.1f} TFLOP/s, B={TAIL_B} "
+            f"{full_rate:.1f} TFLOP/s ({full_ms:.4f} ms): the B={b} grid runs at "
+            f"{rate / full_rate:.3f} of that rate")
+    del qb, kb, vb, doutb, lseb, deltab
     log(f"[train-kernels] training shape bf16 B={b} H={h} T={t}: forward {fwd_ms:.4f} ms, "
         f"dK/dV {dkdv_ms:.4f} ms, dQ {dq_ms:.4f} ms, delta (torch reduction) "
         f"{delta_ms:.4f} ms; plain forward {plain_fwd_ms:.4f} ms, plain backward "
@@ -735,7 +751,11 @@ def phase_train_kernels(dev):
         log(f"[kernel] {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
         if name == "attention_fwd":
-            report_forward(name, ms, products * product, bound_ms, lib_ms, "ILb0ELb1E")
+            report_rate(name, ms, products * product, bound_ms, lib_ms, src, "ILb0ELb1E",
+                        "SDPA forward")
+        else:
+            report_rate(name, ms, products * product, bound_ms, lib_ms, src,
+                        f"{name}_kernelILb0E", "SDPA backward (dq, dk, dv together)")
     return rows
 
 

@@ -254,16 +254,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64], float (&m)[2], f
   }
 }
 
-// p rounded to bf16 straight into the A fragments of P V: accumulator
-// columns 16 kk .. 16 kk + 15 are the k16 slice kk
-__device__ __forceinline__ void to_a_fragments(const float (&p)[64], uint32_t (&pa)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    pa[j / 2][2 * (j % 2)] = pack_bf16(p[4 * j], p[4 * j + 1]);          // row r
-    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);  // row r + 8
-  }
-}
-
 __device__ __forceinline__ void rescale(float (&o)[32], const float (&scale)[2]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -375,7 +365,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (lane == 0) mbar_arrive(&sm.q_empty);  // the next item's Q may load
         }
         online_softmax<kBias>(sc, m, l, scale, sm.bias[s], t * kRows, seq, lane);
-        to_a_fragments(sc, pa);
+        to_a_fragments<kRows>(sc, pa);
         rescale(o, scale);
         issue_pv(o, pa, sm.v[s]);
         wgmma_wait<0>();
@@ -403,41 +393,6 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// [B, T, H, 64] bf16 as the 4-D tensor {64, H, T, B} (innermost first), in
-// boxes of one head's 64 values for box_rows rows of T; rows past T read as
-// zero
-cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-                        int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = kD * sizeof(bf16);
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)heads, (cuuint64_t)seq,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// f32[T] key bias in boxes of 128; entries past T read as zero (masked anyway)
-cudaError_t encode_bias(CUtensorMap* map, const void* ptr, int seq) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[1] = {(cuuint64_t)seq};
-  const cuuint64_t strides[1] = {sizeof(float)};  // not read for rank 1
-  const cuuint32_t box[1] = {(cuuint32_t)kRows};
-  const cuuint32_t elem[1] = {1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <bool kBias, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    void* lse, int batch, int seq, int heads, cudaStream_t stream) {
@@ -448,7 +403,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
     if ((err = encode_rows(&maps[i], srcs[i], batch, seq, heads, i ? kRows : kBlockQ)) !=
         cudaSuccess)
       return err;
-  if (kBias && (err = encode_bias(&maps[3], bias, seq)) != cudaSuccess) return err;
+  if (kBias && (err = encode_bias(&maps[3], bias, seq, kRows)) != cudaSuccess) return err;
   auto kernel = attention_fwd_kernel<kBias, kLse>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;

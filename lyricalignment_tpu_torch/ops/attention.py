@@ -123,7 +123,7 @@ def _check(name: str, tensors, bias):
         kernels.check_cuda(f"{name} key_bias", bias, torch.float32, 1)
         if bias.shape[0] != seq:
             raise ValueError(f"{name}: key_bias length != T")
-        if bias.data_ptr() % 16:  # the bf16 forward reads it with TMA
+        if bias.data_ptr() % 16:  # the bf16 forward and dQ kernels read it with TMA
             raise ValueError(f"{name}: key_bias must be 16-byte aligned")
     return batch, seq, heads, int(q.dtype == torch.bfloat16)
 

@@ -74,6 +74,51 @@ def test_bf16_gradients(rng):
         assert rel_l2(a, b) < 2e-2
 
 
+def _jax_reference(arrays, bias=None):
+    """[out, dq, dk, dv] of the JAX einsum formulation in float32."""
+    q, k, v, g = arrays
+    if bias is None:
+        ref_fn = lambda q, k, v: _einsum_attention(q, k, v, 1.0)
+    else:
+        ref_fn = lambda q, k, v: _einsum_bias_attention(q, k, v, jnp.asarray(bias))
+    out, vjp = jax.vjp(ref_fn, *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(out)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("t", [129, 200])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_bf16_gradients_around_the_tile_edges(rng, t, with_bias):
+    """T just past two 64-row tiles (one of 128) and between tiles, where the
+    bf16 kernels' ragged last tiles lie: the plain backward on bf16 inputs
+    against the float32 JAX gradients, rel-L2 2e-2 as above."""
+    arrays = _inputs(rng, t)
+    if with_bias:
+        bias = _bias(rng, t)
+        got = _port(onepass_self_attention, arrays, torch.bfloat16, torch.from_numpy(bias))
+    else:
+        bias = None
+        got = _port(self_attention, arrays, torch.bfloat16)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, _jax_reference(arrays, bias)):
+        assert rel_l2(a, b) < 2e-2, name
+
+
+def test_gradients_with_all_keys_but_the_first_masked_f32(rng):
+    """A bias of -1e9 on every key but the first: every row attends to key 0
+    alone, so dk and dv are 0 on the masked keys and dv of key 0 is the
+    column sum of the output gradient (atol 1e-5, as the float32 test)."""
+    t = 70
+    arrays = _inputs(rng, t)
+    bias = np.zeros((1, t), np.float32)
+    bias[0, 1:] = -1e9
+    got = _port(onepass_self_attention, arrays, torch.float32, torch.from_numpy(bias))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, _jax_reference(arrays, bias)):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
+    dk, dv = got[2], got[3]
+    assert not dk[:, 1:].any() and not dv[:, 1:].any()
+    np.testing.assert_allclose(dv[:, 0], arrays[3].sum(axis=1), atol=1e-5, rtol=0)
+
+
 def test_row_lse_matches_jax(rng):
     q, k, v, _ = _inputs(rng, 50)
     bias = _bias(rng, 50)

@@ -58,7 +58,8 @@ def _key_bias(kind, seq, dev, g):
     return bias
 
 
-# T around the 128-row tiles of the bf16 kernel (and the float32 kernel's 64):
+# T around the 128-row tiles of the bf16 forward (and the 64 of its backward
+# and of the float32 kernels):
 # ragged last query and key tiles, one key, the encoder's 1500
 SEQS = [1, 50, 64, 127, 128, 129, 130, 255, 1500]
 
@@ -171,6 +172,69 @@ def test_attention_backward_is_reproducible(dev):
         grads.append([x.grad for x in leaves])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+def test_attention_backward_batch_of_16(dev):
+    """The backward pair at B x H = 16 x 16, T = 1500, bf16 (3,072 work
+    items of 128 keys, 2,048 of 192 queries: many rounds of the persistent
+    grids) against autograd through the plain float32 einsum, two samples at
+    a time; rel-L2 1e-2 for dq, dk, dv."""
+    from lyricalignment_tpu_torch.ops.attention import einsum_attention, self_attention
+
+    g = _gen(16)
+    q, k, v, dout = (torch.randn(16, 1500, 16, 64, device=dev, generator=g).mul_(0.4)
+                     .to(torch.bfloat16) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    self_attention(*leaves).backward(dout)
+    for b0 in range(0, 16, 2):
+        ref_leaves = [x[b0:b0 + 2].float().requires_grad_() for x in (q, k, v)]
+        einsum_attention(*ref_leaves).backward(dout[b0:b0 + 2].float())
+        for name, got, want in zip("qkv", leaves, ref_leaves):
+            err = (got.grad[b0:b0 + 2].double() - want.grad.double()).norm()
+            assert err <= 1e-2 * want.grad.double().norm(), (name, b0, float(err))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq", [65, 200, 1500])
+def test_attention_backward_with_masked_keys(dev, seq, dtype):
+    """A bias of -1e9 on every key but the first, through the backward
+    kernels: finite gradients, exactly zero dK and dV on the masked keys,
+    and dV of the first key the column sum of dO."""
+    from lyricalignment_tpu_torch.ops.attention import onepass_self_attention
+
+    g = _gen(seq)
+    q, k, v, dout = (torch.randn(2, seq, 3, 64, device=dev, generator=g).mul_(0.4).to(dtype)
+                     for _ in range(4))
+    bias = _key_bias("first_key", seq, dev, g)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    onepass_self_attention(*leaves, bias).backward(dout)
+    dq, dk, dv = (x.grad for x in leaves)
+    assert all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    assert not dk[:, 1:].any() and not dv[:, 1:].any()
+    want = dout.float().sum(1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dv[:, 0], want, atol=1e-4, rtol=0)
+        torch.testing.assert_close(dq, torch.zeros_like(dq), atol=1e-4, rtol=0)
+    else:
+        err = (dv[:, 0].double() - want.double()).norm()
+        assert err <= 1e-2 * want.double().norm(), float(err)
+
+
+def test_attention_backward_refuses_strided_statistics(dev):
+    """The backward kernels read the row statistics as contiguous f32
+    [B, H, T] with ordinary loads: another layout is refused, not copied."""
+    from lyricalignment_tpu_torch.ops.attention import attention_dkdv, attention_dq
+
+    x = torch.zeros(2, 70, 3, 64, device=dev, dtype=torch.bfloat16)
+    stats = torch.zeros(2, 3, 70, device=dev)
+    strided = torch.zeros(2, 70, 3, device=dev).transpose(1, 2)  # [B, H, T], T not innermost
+    for fn in (attention_dkdv, attention_dq):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x, x, x, x, strided, stats)
+        with pytest.raises(ValueError, match=r"\[B, H, T\]"):
+            fn(x, x, x, x, stats, stats[:, :, :69].contiguous())
+        with pytest.raises(ValueError, match="expected torch.float32"):
+            fn(x, x, x, x, stats.double(), stats)
 
 
 def test_attention_without_grad_writes_no_statistics(dev):
