@@ -11,7 +11,11 @@ NVIDIA GPU (written for the H100, sm_90a):
    head of 21129 classes), and times kernel, plain version and, where one
    PyTorch call computes the same function, that call; for the bf16
    attention forward also its row log-sum-exp (atol 1e-4), achieved
-   TFLOP/s, share of the bound and ptxas' register and spill line;
+   TFLOP/s, share of the bound and ptxas' register and spill line; for the
+   row log-sum-exp its rate and share of both its bounds (float32 on the
+   CUDA cores, the three TF32 products it issues on the tensor cores), two
+   runs' equal bits and ptxas' line; for the log-mel its share of the bound,
+   its time beside the library call's and ptxas' line;
 3. serves ``LyricAligner.align_many`` on a whisper-medium AlignModel
    (random weights from a seeded generator, bf16, tanh GELU) for 8 WAV
    requests of 8-45 s, with every kernel's launch counter reset just before
@@ -74,9 +78,10 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, float32 on the
-# CUDA cores, bf16 on the tensor cores
+# CUDA cores, TF32 and bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 494.5e12
 PEAK_BF16 = 989e12
 
 B, SECONDS, L_BENCH, C_CTC = 16, 30, 48, 21129
@@ -187,18 +192,23 @@ def phase_kernels(dev):
                           pad_mode="reflect", return_complex=True)[..., :-1]
         return torch.log10(torch.clamp(fb @ spec.abs() ** 2, min=1e-10))
 
-    # the least work for this function, not the kernel's dense DFT: a real
+    # the least work for this function: a real
     # FFT of 5/2 N log2 N a frame, the power (3 a bin) and the filterbank's
     # nonzero weights; bytes of the padded audio in and the log-mel out
     nnz = int((fb != 0).sum())
     ops = B * n_frames * (2.5 * N_FFT * math.log2(N_FFT) + 3 * 201 + 2 * nnz)
     nbytes = 4 * (padded.numel() + nnz + got.numel())
+    ms = time_ms(lambda: mel.log10_mel(padded, n_frames, n_mels), reps=20)
+    stft_ms = time_ms(stft_mel, reps=20)
+    bound_ms, bound_by = bound(ops, PEAK_F32, nbytes)
     report("log10_mel", "lyricalignment_tpu_torch/csrc/mel.cu",
            "lyricalignment_tpu/ops/mel_pallas.py:43", err, "atol 1e-4",
-           err <= 1e-4,
-           time_ms(lambda: mel.log10_mel(padded, n_frames, n_mels)),
+           err <= 1e-4, ms,
            time_ms(lambda: mel.log10_mel_plain(padded, n_frames, n_mels)),
-           time_ms(stft_mel), *bound(ops, PEAK_F32, nbytes))
+           stft_ms, bound_ms, bound_by)
+    log(f"[kernel] log10_mel: {bound_ms / ms:.3f} of the bound ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP), {stft_ms / ms:.2f}x faster than torch.stft + mel "
+        f"({stft_ms:.4f} ms); ptxas: {ptxas_report('mel.cu', 'log10_mel_kernel')}")
     del audio, padded, got, ref
 
     # --- kernel 2: encoder attention, B x H = 16 x 16, T = 1500, d_h = 64
@@ -254,14 +264,29 @@ def phase_kernels(dev):
     ref = viterbi.row_lse_plain(h, ws, bs)
     err = (got - ref).abs().max().item()
     ok = bool(((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all())
+    if not torch.equal(got, viterbi.row_lse(h, ws, bs)):
+        raise AssertionError("row_lse: two runs differ in their bits")
+    # two routes to the same function: 2 rows feat cols float32 operations
+    # on the CUDA cores, or the three TF32 products of the split the kernel
+    # issues on the tensor cores; holding the tolerance on the second shows
+    # it to be the same work, and the row's bound is the smaller of the two
     ops = 2 * rows_h * feat * ws.shape[0]
     nbytes = 4 * (h.numel() + ws.numel() + bs.numel() + rows_h)
+    f32_ms, _ = bound(ops, PEAK_F32, nbytes)
+    tf32_ms, bound_by = bound(3 * ops, PEAK_TF32, nbytes)
+    ms = time_ms(lambda: viterbi.row_lse(h, ws, bs), reps=5)
+    lib_ms = time_ms(lambda: torch.logsumexp(h @ ws.T + bs, dim=-1), reps=3)
     report("row_lse", "lyricalignment_tpu_torch/csrc/lse.cu",
-           "lyricalignment_tpu/ops/viterbi.py:269", err, "rtol 1e-5 / atol 1e-4", ok,
-           time_ms(lambda: viterbi.row_lse(h, ws, bs), reps=3),
-           time_ms(lambda: viterbi.row_lse_plain(h, ws, bs), reps=3),
-           time_ms(lambda: torch.logsumexp(h @ ws.T + bs, dim=-1), reps=3),
-           *bound(ops, PEAK_F32, nbytes))
+           "lyricalignment_tpu/ops/viterbi.py:269", err, "rtol 1e-5 / atol 1e-4", ok, ms,
+           time_ms(lambda: viterbi.row_lse_plain(h, ws, bs), reps=3), lib_ms,
+           min(f32_ms, tf32_ms), bound_by)
+    log(f"[kernel] row_lse: {ops / ms / 1e9:.1f} TFLOP/s of the function's {ops / 1e9:.1f} "
+        f"GFLOP, {3 * ops / ms / 1e9:.1f} TFLOP/s of the three TF32 products it issues; "
+        f"{f32_ms / ms:.3f} of the float32 CUDA-core bound ({f32_ms:.2f} ms), "
+        f"{tf32_ms / ms:.3f} of the 3xTF32 tensor-core bound ({tf32_ms:.2f} ms, the row's: "
+        f"the smaller); {lib_ms / ms:.2f}x faster than logsumexp(h @ W.T + b) "
+        f"({lib_ms:.3f} ms); two runs bit-equal; ptxas: "
+        f"{ptxas_report('lse.cu', 'row_lse_kernel')}")
     del h, w, b, ws, bs, got, ref
 
     # --- kernel 4: Viterbi DP, 16 x 1500 frames x 48 labels (K = 97)

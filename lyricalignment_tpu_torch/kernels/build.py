@@ -42,7 +42,7 @@ PER_SOURCE_FLAGS: Dict[str, List[str]] = {"viterbi.cu": ["-fmad=false"]}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher -> argument types, in the order of the C signatures in csrc/
 SIGNATURES: Dict[str, list] = {
-    # padded audio, cos basis, sin basis, mel^T, band range, out, batch,
+    # padded audio, window, twiddles, mel^T, band range, out, batch,
     # padded_len, n_frames, n_mels, stream
     "la_log10_mel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, key_bias (or null), out, batch, seq, heads, is_bf16, stream
@@ -56,8 +56,10 @@ SIGNATURES: Dict[str, list] = {
     # q, k, v, dout, lse, delta, key_bias (or null), dq, batch, seq, heads,
     # is_bf16, stream
     "la_attention_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # h, w (first column row), b (first column), out, rows, feat, cols, stream
-    "la_row_lse": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # h, w (first column row), b (first column), out, scratch (of
+    # la_row_lse_scratch_floats(rows, feat, cols) floats), rows, feat, cols,
+    # stream
+    "la_row_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lab, sil, labels, num_labels, num_frames, backpointer scratch, onset,
     # offset, batch, frames, labels_max, stream
     "la_viterbi": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -159,6 +161,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.la_error_string.argtypes = [ctypes.c_int]
             lib.la_error_string.restype = ctypes.c_char_p
+            lib.la_row_lse_scratch_floats.argtypes = [_I, _I, _I]
+            lib.la_row_lse_scratch_floats.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

@@ -8,8 +8,9 @@ dynamic-range compression to 8 below the batch (or per-sample) peak, then
 
 The framing + DFT + power + mel + log10 middle is one function with two
 forms: the CUDA kernel ``csrc/mel.cu`` for a CUDA tensor (the counterpart of
-the TPU's fused Pallas kernel, for any ``n_mels``) and :func:`log10_mel_plain`
-for a CPU tensor. The reflect pad and the clamp stay in PyTorch around it,
+the TPU's fused Pallas kernel, for any ``n_mels``; its DFT is a fast
+transform on the tables of :func:`_fft_tables`) and :func:`log10_mel_plain`
+(dense cos/sin bases) for a CPU tensor. The reflect pad and the clamp stay in PyTorch around it,
 as they stay outside the TPU kernel (`mel_pallas.py:122-126`).
 """
 
@@ -85,6 +86,41 @@ def _dft_bases(n_fft: int = N_FFT) -> tuple:
     return cos_b, sin_b
 
 
+FFT_N1, FFT_N2 = 8, 25  # the kernel's split of a frame's 200 complex points
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_tables(n_fft: int = N_FFT) -> tuple:
+    """Tables of the kernel's fast transform, computed in float64 and
+    rounded once to float32. A frame's ``n_fft`` windowed real samples are
+    transformed as ``n_fft // 2`` complex points z[n] = x[2n] + i x[2n+1],
+    n = FFT_N2 * n1 + n2, k = k1 + FFT_N1 * k2.
+
+    Returns (window [n_fft] periodic Hann, twiddle [FFT_N1, FFT_N2, 2] =
+    exp(-2 pi i n2 k1 / (n_fft / 2)) as (re, im), post [n_fft // 2 + 1, 2] =
+    exp(-2 pi i k / n_fft), which joins the even and odd samples' spectra).
+    """
+    half = n_fft // 2
+    if FFT_N1 * FFT_N2 != half:
+        raise ValueError(f"the transform is written for n_fft = {2 * FFT_N1 * FFT_N2}")
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
+    angle = -2.0 * np.pi * np.outer(np.arange(FFT_N1), np.arange(FFT_N2)) / half
+    twiddle = np.stack([np.cos(angle), np.sin(angle)], axis=-1)
+    angle = -2.0 * np.pi * np.arange(half + 1) / n_fft
+    post = np.stack([np.cos(angle), np.sin(angle)], axis=-1)
+    return (window.astype(np.float32), twiddle.astype(np.float32),
+            post.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_constants(device: torch.device):
+    """(window f32[400], twiddles f32[8 * 25 + 201, 2]: the pass twiddles then
+    the even/odd ones) on ``device``, as the kernel reads them."""
+    window, twiddle, post = _fft_tables(N_FFT)
+    both = np.concatenate([twiddle.reshape(-1, 2), post])
+    return torch.from_numpy(window).to(device), torch.from_numpy(both).to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _constants(device: torch.device, n_mels: int):
     """(cos, sin, mel^T, band range) on ``device``: f32 [400, 201] x2,
@@ -126,12 +162,13 @@ def log10_mel(padded: torch.Tensor, n_frames: int, n_mels: int) -> torch.Tensor:
     batch, padded_len = padded.shape
     if padded_len < (n_frames - 1) * HOP_LENGTH + N_FFT:
         raise ValueError("log10_mel: audio too short for n_frames")
-    cos_b, sin_b, mel_t, band = _constants(padded.device, n_mels)
+    _, _, mel_t, band = _constants(padded.device, n_mels)
+    window, twiddle = _fft_constants(padded.device)
     out = torch.empty((batch, n_mels, n_frames), dtype=torch.float32,
                       device=padded.device)
     if out.numel():
-        kernels.launch("la_log10_mel", padded.data_ptr(), cos_b.data_ptr(),
-                       sin_b.data_ptr(), mel_t.data_ptr(), band.data_ptr(),
+        kernels.launch("la_log10_mel", padded.data_ptr(), window.data_ptr(),
+                       twiddle.data_ptr(), mel_t.data_ptr(), band.data_ptr(),
                        out.data_ptr(),
                        batch, padded_len, n_frames, n_mels,
                        kernels.stream_of(padded))

@@ -94,8 +94,13 @@ def row_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_lse: needs feat % 4 == 0 and 16-byte aligned h, w")
     out = torch.empty((rows,), dtype=torch.float32, device=h.device)
     if rows:
+        # the low halves of w's split and the column ranges' partial results
+        scratch = torch.empty(
+            (kernels.library().la_row_lse_scratch_floats(rows, feat, cols),),
+            dtype=torch.float32, device=h.device)
         kernels.launch("la_row_lse", h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                       out.data_ptr(), rows, feat, cols, kernels.stream_of(h))
+                       out.data_ptr(), scratch.data_ptr(), rows, feat, cols,
+                       kernels.stream_of(h))
     return out
 
 

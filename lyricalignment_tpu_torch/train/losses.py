@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 IGNORE_ID = -100
+# per-sample CTC NLL of a target with no path: optax.ctc_loss's -log_epsilon
+INFEASIBLE_NLL = 1.0e5
 
 
 def _group_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -101,9 +103,12 @@ def ctc_loss_grouped(logits: torch.Tensor, labels: torch.Tensor,
     """CTC of the selected samples with torch mean semantics: each sample's
     NLL over its full input length, divided by its target length (at least
     1), averaged over the group. logits f32[B, T, K] (blank at channel 0),
-    labels int[B, N] left-packed and -100 padded. ``F.ctc_loss`` gives
-    ``inf`` for a target that cannot fit in T frames, where optax gives a
-    large finite value."""
+    labels int[B, N] left-packed and -100 padded. A target that cannot fit
+    in T frames (its labels plus one blank between each repeated pair exceed
+    T) has no path: ``F.ctc_loss`` would give ``inf`` and a NaN gradient.
+    Such a sample gets the NLL ``INFEASIBLE_NLL`` and no gradient; optax
+    gives 1e5 plus the cost of its best path through one epsilon transition,
+    and that path's gradient."""
     b, t, _ = logits.shape
     log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # [T, B, K]
     valid = labels != IGNORE_ID
@@ -111,7 +116,10 @@ def ctc_loss_grouped(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     input_len = torch.full((b,), t, dtype=torch.long, device=logits.device)
     per_example = F.ctc_loss(log_probs, safe, input_len, target_len, blank=0,
-                             reduction="none", zero_infinity=False)
+                             reduction="none", zero_infinity=True)
+    repeats = ((safe[:, 1:] == safe[:, :-1]) & valid[:, 1:]).sum(dim=1)
+    per_example = torch.where(target_len + repeats > t,
+                              per_example.new_tensor(INFEASIBLE_NLL), per_example)
     per_example = per_example / target_len.clamp(min=1)
     total = torch.where(sample_mask, per_example, torch.zeros_like(per_example)).sum()
     return _group_mean(total, sample_mask.sum())

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path can reach: ragged last tiles, sequences
-shorter than a tile, 128 mel bands, K = 257 Viterbi states, zero-frame and
-zero-label rows, the CTC column slice, and the attention backward with and
-without a key bias. ``chip_smoke.py`` covers the main
+shorter than a tile, 128 mel bands, silent and full-scale audio, K = 257
+Viterbi states, zero-frame and zero-label rows, the CTC column slice and the
+row log-sum-exp's tiles and column ranges, and the attention backward with
+and without a key bias. ``chip_smoke.py`` covers the main
 path's own shapes. On a machine with an NVIDIA GPU (the repository's
 tests/conftest.py needs JAX, which such a machine may lack):
 
@@ -43,6 +44,85 @@ def test_log10_mel(dev, seconds, n_mels):
     got = mel.log10_mel(padded, n_frames, n_mels)
     ref = mel.log10_mel_plain(padded, n_frames, n_mels)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+def _log10_mel_f64(padded, n_frames, n_mels):
+    """float64 reference: numpy's rfft of the Hann-windowed frames, the
+    float32 filterbank's weights, log10 floored at 1e-10; [B, n_mels, T']."""
+    import numpy as np
+
+    from lyricalignment_tpu_torch.ops import mel
+
+    x = padded.double().cpu().numpy()
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(400) / 400))
+    frames = np.stack([x[:, f * 160:f * 160 + 400] for f in range(n_frames)], axis=1)
+    power = np.abs(np.fft.rfft(frames * window, axis=-1)) ** 2
+    spec = power @ mel.mel_filterbank(n_mels=n_mels).T.astype(np.float64)
+    return torch.from_numpy(np.log10(np.maximum(spec, 1e-10))).transpose(1, 2)
+
+
+# frame counts around the kernel's 32-frame tiles, one frame, both band counts
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("n_frames", [1, 31, 33, 64, 77])
+def test_log10_mel_frame_counts(dev, n_frames, n_mels):
+    """The FFT kernel against the plain dense-DFT version (atol 1e-4) and a
+    float64 reference (atol 1e-4: both float32 versions sit within 1e-5)."""
+    from lyricalignment_tpu_torch.ops import mel
+
+    audio = torch.randn(2, n_frames * 160, device=dev, generator=_gen(n_frames)) * 0.1
+    padded = mel.reflect_pad(audio).contiguous() if n_frames > 1 else torch.nn.functional.pad(
+        audio, (200, 200))  # 160 samples cannot be reflected by 200
+    got = mel.log10_mel(padded, n_frames, n_mels)
+    assert got.shape == (2, n_mels, n_frames)
+    torch.testing.assert_close(got, mel.log10_mel_plain(padded, n_frames, n_mels),
+                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.double().cpu(), _log10_mel_f64(padded, n_frames, n_mels),
+                               atol=1e-4, rtol=0)
+    assert torch.equal(got, mel.log10_mel(padded, n_frames, n_mels))
+
+
+def test_log10_mel_half_silent_audio(dev):
+    """Loud noise that stops mid-clip: every frame is transformed on its
+    own, so each all-zero frame gives exactly log10(1e-10) beside full-scale
+    neighbours, and the rest agree with the plain version."""
+    from lyricalignment_tpu_torch.ops import mel
+
+    n_frames = 101
+    audio = torch.randn(2, n_frames * 160, device=dev, generator=_gen(2)).clamp(-1, 1)
+    audio[0, 50 * 160 + 37:] = 0.0
+    audio[1, :33 * 160 + 5] = 0.0
+    padded = mel.reflect_pad(audio).contiguous()
+    got = mel.log10_mel(padded, n_frames, 80)
+    torch.testing.assert_close(got, mel.log10_mel_plain(padded, n_frames, 80), atol=1e-4, rtol=0)
+    silent = (padded.unfold(-1, 400, 160)[:, :n_frames] == 0).all(-1)  # [B, T']
+    assert int(silent[0].sum()) >= 45 and int(silent[1].sum()) >= 30
+    assert bool((got.transpose(1, 2)[silent] == -10.0).all())
+
+
+def test_log10_mel_full_scale_sine(dev):
+    """A full-scale sine: the spectrum spans more decades than float32
+    arithmetic resolves, so the versions are compared where the frontend
+    keeps them, within 8 decades of the peak (``log_mel`` clamps there).
+    Against the plain version and against float64: atol 1e-4 within 6
+    decades of the peak, and 1e-3 down to 8, where float32 rounding of the
+    transform (1e-7 of the peak's amplitude, 1e-3 of a bin 4 decades of
+    amplitude below it) is what either float32 version can hold."""
+    from lyricalignment_tpu_torch.ops import mel
+
+    n_frames = 200
+    t = torch.arange(n_frames * 160, device=dev, dtype=torch.float64) / 16000.0
+    audio = torch.stack([torch.sin(2 * torch.pi * 440.0 * t),
+                         torch.sin(2 * torch.pi * 3217.3 * t)]).float()
+    padded = mel.reflect_pad(audio).contiguous()
+    got = mel.log10_mel(padded, n_frames, 80).double()
+    ref = mel.log10_mel_plain(padded, n_frames, 80).double()
+    exact = _log10_mel_f64(padded, n_frames, 80).to(dev)
+    assert float(exact.min()) < float(exact.max()) - 8.0  # the clamp is reached
+    for decades, atol in ((6.0, 1e-4), (8.0, 1e-3)):
+        floor = exact.max() - decades
+        kept = torch.maximum(got, floor)
+        torch.testing.assert_close(kept, torch.maximum(ref, floor), atol=atol, rtol=0)
+        torch.testing.assert_close(kept, torch.maximum(exact, floor), atol=atol, rtol=0)
 
 
 def _key_bias(kind, seq, dev, g):
@@ -329,6 +409,97 @@ def test_row_lse(dev, rows, cols, ctc_slice):
     got = row_lse(h, w, b)
     ref = row_lse_plain(h, w, b)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def _lse_inputs(dev, rows, feat, cols, seed, h_scale=1.0):
+    g = _gen(seed)
+    h = torch.randn(rows, feat, device=dev, generator=g) * h_scale
+    w = torch.randn(cols, feat, device=dev, generator=g) * (feat ** -0.5)
+    b = torch.randn(cols, device=dev, generator=g)
+    return h, w, b
+
+
+# around the kernel's tiles: 128 rows of h an item, 256 columns of w a tile
+# (4229 columns are 17 tiles, split into column ranges), 32 feat a stage
+@pytest.mark.parametrize("feat", [4, 36, 64, 768])
+@pytest.mark.parametrize("cols", [5, 255, 256, 257, 4229])
+@pytest.mark.parametrize("rows", [1, 127, 128, 129])
+def test_row_lse_edges(dev, rows, cols, feat):
+    """The split-precision tensor-core kernel against the plain float32
+    version (rtol 1e-5 / atol 1e-4), and bit-equal from run to run (the
+    column ranges are merged in a fixed order, no atomics)."""
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse, row_lse_plain
+
+    h, w, b = _lse_inputs(dev, rows, feat, cols, rows + cols + feat)
+    got = row_lse(h, w, b)
+    assert got.shape == (rows,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, row_lse_plain(h, w, b), atol=1e-4, rtol=1e-5)
+    assert torch.equal(got, row_lse(h, w, b))
+
+
+def test_row_lse_main_path_shape(dev):
+    """16 x 1500 rows, feat 768, the CTC head's 21127 syllable columns (a
+    slice of the 21129-row weight), against the plain version and against
+    float64 on the first 512 rows."""
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse, row_lse_plain
+
+    h, w, b = _lse_inputs(dev, 24000, 768, 21129, 7, h_scale=0.5)
+    w, b = w[1:-1], b[1:-1]
+    kernels.reset_launch_counts()
+    got = row_lse(h, w, b)
+    assert dict(kernels.launches) == {"la_row_lse": 1}
+    torch.testing.assert_close(got, row_lse_plain(h, w, b), atol=1e-4, rtol=1e-5)
+    exact = torch.logsumexp(h[:512].double() @ w.double().T + b.double(), dim=-1)
+    torch.testing.assert_close(got[:512].double(), exact, atol=1e-4, rtol=1e-5)
+    assert torch.equal(got, row_lse(h, w, b))
+
+
+@pytest.mark.parametrize("case", ["scaled_h", "one_dominant_column"])
+def test_row_lse_large_logits(dev, case):
+    """Logits of large magnitude: h scaled by 30, and rows whose largest
+    logit exceeds every other by more than 100 (the sum is that logit)."""
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse, row_lse_plain
+
+    h, w, b = _lse_inputs(dev, 300, 768, 4229, 11, h_scale=30.0 if case == "scaled_h" else 1.0)
+    if case == "one_dominant_column":
+        b[1234] += 150.0
+    got = row_lse(h, w, b)
+    ref = row_lse_plain(h, w, b)
+    exact = torch.logsumexp(h.double() @ w.double().T + b.double(), dim=-1)
+    if case == "one_dominant_column":
+        logits = h.double() @ w.double().T + b.double()
+        top = logits.topk(2, dim=-1).values
+        assert bool((top[:, 0] - top[:, 1] > 100).all())
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(got.double(), exact, atol=1e-4, rtol=1e-5)
+
+
+def test_row_lse_refusals(dev):
+    """What the tensor maps cannot take is refused, not copied: feat not a
+    multiple of 4, h or w off a 16-byte boundary, shapes that disagree, other
+    types and layouts."""
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse
+
+    h, w, b = _lse_inputs(dev, 8, 64, 12, 1)
+    with pytest.raises(ValueError, match="feat % 4"):
+        row_lse(h[:, :62].contiguous(), w[:, :62].contiguous(), b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        row_lse(h, torch.zeros(12 * 64 + 1, device=dev)[1:].view(12, 64), b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        row_lse(torch.zeros(8 * 64 + 1, device=dev)[1:].view(8, 64), w, b)
+    with pytest.raises(ValueError, match="do not agree"):
+        row_lse(h, w, b[:11])
+    with pytest.raises(ValueError, match="do not agree"):
+        row_lse(h, w[:, :60].contiguous(), b)
+    with pytest.raises(ValueError, match="do not agree"):
+        row_lse(h, w[:0], b[:0])
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        row_lse(h.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        row_lse(h, w.T.contiguous().T, b)
+    assert row_lse(h[:0], w, b).shape == (0,)
 
 
 @pytest.mark.parametrize("frames,l_max", [(37, 5), (300, 128)])

@@ -5,7 +5,9 @@ logits, a CTC target of length zero and an empty sample group (0). The CE
 gradients agree with JAX's within rel-L2 1e-5. The CTC gradient is held
 against a float64 computation instead: optax's float32 CTC gradient is
 itself ~2e-3 from it over 1500 frames, the port's ``F.ctc_loss`` within
-1e-5."""
+1e-5. A CTC target that cannot fit its frames gives a finite loss within
+rtol 1e-3 of optax's in both packages; its gradient is zero in the port and
+that of optax's epsilon path in JAX."""
 
 import jax
 import jax.numpy as jnp
@@ -95,3 +97,33 @@ def test_ctc_zero_length_target_alone(inputs):
     blank = -torch.log_softmax(torch.from_numpy(logits[1, :, :V]).double(), -1)[:, 0].sum()
     np.testing.assert_allclose(got, ref, rtol=1e-5)
     np.testing.assert_allclose(got, float(blank), rtol=1e-5)
+
+
+@pytest.mark.parametrize("labels,why", [([1, 2, 3, 4, 5], "longer than the frames"),
+                                        ([3, 3, 3], "repeats need blanks between")],
+                         ids=["too_long", "repeats"])
+def test_ctc_infeasible_target(rng, labels, why):
+    """Four frames; sample 0 can fit its two labels, sample 1 cannot fit
+    its own. Both packages stay finite. The port gives the infeasible
+    sample the NLL 1e5 (optax: 1e5 plus its best epsilon path's few nats, so
+    the losses agree within rtol 1e-3) and no gradient, where optax sends
+    that path's gradient (entries up to ~0.5 / target length) into the
+    logits; the feasible sample's gradient is untouched by its neighbour."""
+    t = 4
+    logits = (rng.standard_normal((2, t, V)) * 2).astype(np.float32)
+    ctc = np.full((2, 5), -100, np.int32)
+    ctc[0, :2] = [4, 7]
+    ctc[1, :len(labels)] = labels
+    mask = np.array([True, True])
+    got, ref, g, rg = _both(J.ctc_loss_grouped, P.ctc_loss_grouped, logits, ctc, mask)
+    assert np.isfinite(got) and np.isfinite(ref) and np.isfinite(g).all() and np.isfinite(rg).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-3)
+    assert got > 0.5 * P.INFEASIBLE_NLL / len(labels) / 2  # the mean of two samples
+
+    alone, alone_ref, g_alone, rg_alone = _both(J.ctc_loss_grouped, P.ctc_loss_grouped,
+                                                logits[:1], ctc[:1], mask[:1])
+    np.testing.assert_allclose(alone, alone_ref, rtol=1e-5)
+    np.testing.assert_allclose(g[0], g_alone[0] / 2, rtol=1e-6, atol=1e-9)
+    assert rel_l2(g[0], rg[0]) < 1e-4 and rel_l2(g_alone, rg_alone) < 1e-4
+    assert not g[1].any()
+    assert 1e-2 < np.abs(rg[1]).max() < 1.0  # optax's epsilon-path gradient
