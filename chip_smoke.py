@@ -15,7 +15,11 @@ NVIDIA GPU (written for the H100, sm_90a):
    row log-sum-exp its rate and share of both its bounds (float32 on the
    CUDA cores, the three TF32 products it issues on the tensor cores), two
    runs' equal bits and ptxas' line; for the log-mel its share of the bound,
-   its time beside the library call's and ptxas' line;
+   its time beside the library call's and ptxas' line; for the Viterbi DP
+   exact onsets and offsets and two runs' equal bits at the main path's
+   shape and at 16 x 3000 frames x 128 labels, its chain floor (a one-warp
+   probe's cycles a dependent step, times the longest row's frames, at the
+   SM clock read) and ptxas' lines of every states-a-lane instantiation;
 3. serves ``LyricAligner.align_many`` on a whisper-medium AlignModel
    (random weights from a seeded generator, bf16, tanh GELU) for 8 WAV
    requests of 8-45 s, with every kernel's launch counter reset just before
@@ -117,6 +121,65 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 def bound(ops: float, peak_ops: float, nbytes: float):
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock now, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    return float(out[0])
+
+
+# One warp timing `steps` dependent steps of the Viterbi DP's chain as it
+# stands between two lanes: the shuffle from the previous lane, the compare
+# and select of stay against left, the add. out[0] = clock64 cycles for all
+# of them (out[1] keeps the result alive).
+_STEP_PROBE = r"""
+__global__ void step_cycles_kernel(int steps, float em, long long* out) {
+  float dp = static_cast<float>(threadIdx.x);
+  const long long t0 = clock64();
+  for (int t = 0; t < steps; ++t) {
+    const float a = __shfl_up_sync(0xffffffffu, dp, 1);
+    dp = __fadd_rn(dp > a ? dp : a, em);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = __float_as_int(dp);
+  }
+}
+
+extern "C" int step_cycles(int steps, long long* out) {
+  step_cycles_kernel<<<1, 32>>>(steps, -1.0f, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def viterbi_step_cycles(steps: int = 100000) -> float:
+    """SM cycles of one dependent step of the Viterbi DP's chain, from
+    ``_STEP_PROBE`` built with the DP's own flags beside the kernel library."""
+    import ctypes
+
+    import torch
+
+    from lyricalignment_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        src, so = os.path.join(tmp, "step_probe.cu"), os.path.join(tmp, "step_probe.so")
+        with open(src, "w") as f:
+            f.write(_STEP_PROBE)
+        subprocess.run([build._nvcc()] + build.ARCH_FLAGS + build.COMMON_FLAGS
+                       + build.PER_SOURCE_FLAGS["viterbi.cu"] + ["-shared", "-o", so, src],
+                       check=True, capture_output=True, timeout=300)
+        lib = ctypes.CDLL(so)
+        out = torch.zeros(2, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        if lib.step_cycles(steps, ctypes.c_void_p(out.data_ptr())) != 0:
+            raise AssertionError("the step probe did not launch")
+        torch.cuda.synchronize()
+        return out[0].item() / steps
 
 
 def rel_l2(a, b) -> float:
@@ -289,30 +352,55 @@ def phase_kernels(dev):
         f"{ptxas_report('lse.cu', 'row_lse_kernel')}")
     del h, w, b, ws, bs, got, ref
 
-    # --- kernel 4: Viterbi DP, 16 x 1500 frames x 48 labels (K = 97)
-    T = 1500
-    logp = torch.log_softmax(torch.randn(B, T, L_BENCH + 1, device=dev, generator=g) * 3, -1)
-    lab = logp[..., :L_BENCH].clamp(min=-1000.0).contiguous()
-    sil = logp[..., L_BENCH].clamp(min=-1000.0).contiguous()
-    labels = torch.randint(2, 400, (B, L_BENCH), device=dev, generator=g, dtype=torch.int32)
-    labels[:, 5] = labels[:, 4]  # a repeat: skip banned
-    nl = torch.full((B,), L_BENCH, dtype=torch.int32, device=dev)
-    nl[1], nl[2] = 30, 1
-    nf = torch.full((B,), T, dtype=torch.int32, device=dev)
-    nf[1], nf[3] = 1200, 60
-    args = (lab, sil, labels, nl, nf)
-    got = viterbi.viterbi_dp(*args)
-    ref = viterbi.viterbi_dp_plain(*args)
-    exact = all(torch.equal(x, y) for x, y in zip(got, ref))
-    err = max((x - y).abs().max().item() for x, y in zip(got, ref))
-    # the DP stops at each row's num_frames: count the frames this data needs
-    live = int(nf.clamp(0, T).sum())
-    nbytes = 4 * (live * (L_BENCH + 1) + labels.numel() + 2 * B + 2 * B * L_BENCH)
-    report("viterbi", "lyricalignment_tpu_torch/csrc/viterbi.cu",
-           "lyricalignment_tpu/ops/viterbi_pallas.py:54", float(err), "exact", exact,
-           time_ms(lambda: viterbi.viterbi_dp(*args), reps=10),
-           time_ms(lambda: viterbi.viterbi_dp_plain(*args), reps=1, warmup=0),
-           None, *bound(live * (2 * L_BENCH + 1), PEAK_F32, nbytes))
+    # --- kernel 4: Viterbi DP, 16 x 1500 frames x 48 labels (K = 97), and
+    # 16 x 3000 x 128 (K = 257: a 45 s clip at the default max_label_len,
+    # whose backpointers go through the scratch)
+    def viterbi_case(t, l_max):
+        logp = torch.log_softmax(torch.randn(B, t, l_max + 1, device=dev, generator=g) * 3, -1)
+        lab = logp[..., :l_max].clamp(min=-1000.0).contiguous()
+        sil = logp[..., l_max].clamp(min=-1000.0).contiguous()
+        labels = torch.randint(2, 400, (B, l_max), device=dev, generator=g, dtype=torch.int32)
+        labels[:, 5] = labels[:, 4]  # a repeat: skip banned
+        nl = torch.full((B,), l_max, dtype=torch.int32, device=dev)
+        nl[1], nl[2] = 30, 1
+        nf = torch.full((B,), t, dtype=torch.int32, device=dev)
+        nf[1], nf[3] = t * 4 // 5, 60
+        args = (lab, sil, labels, nl, nf)
+        got = viterbi.viterbi_dp(*args)
+        ref = viterbi.viterbi_dp_plain(*args)
+        exact = all(torch.equal(x, y) for x, y in zip(got, ref))
+        exact = exact and all(torch.equal(x, y) for x, y in zip(got, viterbi.viterbi_dp(*args)))
+        err = max((x - y).abs().max().item() for x, y in zip(got, ref))
+        # the DP stops at each row's num_frames: count the frames this data needs
+        live = nf.clamp(0, t)
+        nbytes = 4 * (int(live.sum()) * (l_max + 1) + labels.numel() + 2 * B + 2 * B * l_max)
+        ms = time_ms(lambda: viterbi.viterbi_dp(*args), reps=10)
+        plain_ms = time_ms(lambda: viterbi.viterbi_dp_plain(*args), reps=1, warmup=0)
+        return (float(err), exact, ms, plain_ms,
+                bound(int(live.sum()) * (2 * l_max + 1), PEAK_F32, nbytes), int(live.max()))
+
+    # the chain's floor: the longest row's live frames, each one dependent
+    # step (shuffle from the previous lane, compare and select, add) whose
+    # cycles a one-warp probe measures, at the SM clock read now
+    step_cycles = viterbi_step_cycles()
+    for t, l_max in ((1500, L_BENCH), (3000, 128)):
+        err, exact, ms, plain_ms, (bound_ms, bound_by), live_max = viterbi_case(t, l_max)
+        mhz = sm_clock_mhz()
+        floor_ms = live_max * step_cycles / (mhz * 1e3)
+        log(f"[kernel] viterbi B={B} T={t} L={l_max} (K={2 * l_max + 1}): kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); chain floor "
+            f"{floor_ms:.4f} ms ({live_max} frames x {step_cycles:.1f} cycles a step at "
+            f"{mhz:.0f} MHz), {floor_ms / ms:.3f} of the kernel's time; exact and two runs "
+            f"bit-equal: {exact}")
+        if t == 1500:
+            report("viterbi", "lyricalignment_tpu_torch/csrc/viterbi.cu",
+                   "lyricalignment_tpu/ops/viterbi_pallas.py:54", err, "exact", exact,
+                   ms, plain_ms, None, bound_ms, bound_by)
+        elif not exact:
+            raise AssertionError(f"viterbi disagrees with its plain version at T={t}")
+    # K = 97 and 257 both run two states a lane
+    log("[kernel] viterbi ptxas: " + "; ".join(
+        f"S={s}: {ptxas_report('viterbi.cu', f'viterbi_kernelILi{s}E')}" for s in (2, 4, 8, 16, 32)))
     return rows
 
 

@@ -60,7 +60,8 @@ SIGNATURES: Dict[str, list] = {
     # la_row_lse_scratch_floats(rows, feat, cols) floats), rows, feat, cols,
     # stream
     "la_row_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # lab, sil, labels, num_labels, num_frames, backpointer scratch, onset,
+    # lab, sil, labels, num_labels, num_frames, backpointer scratch (of
+    # la_viterbi_scratch_words(batch, frames, labels_max) words), onset,
     # offset, batch, frames, labels_max, stream
     "la_viterbi": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -163,6 +164,8 @@ def library() -> ctypes.CDLL:
             lib.la_error_string.restype = ctypes.c_char_p
             lib.la_row_lse_scratch_floats.argtypes = [_I, _I, _I]
             lib.la_row_lse_scratch_floats.restype = ctypes.c_longlong
+            lib.la_viterbi_scratch_words.argtypes = [_I, _I, _I]
+            lib.la_viterbi_scratch_words.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

@@ -180,8 +180,15 @@ def log10_mel(padded: torch.Tensor, n_frames: int, n_mels: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def reflect_pad(audio: torch.Tensor) -> torch.Tensor:
-    """Centre padding of torch.stft(center=True, pad_mode='reflect')."""
-    return F.pad(audio[:, None, :], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0]
+    """Centre padding of torch.stft(center=True, pad_mode='reflect') of
+    audio [B, T], with numpy's (and ``jnp.pad``'s) rule where the pad is
+    longer than the audio: the reflection repeats with period 2 (T - 1)."""
+    pad, n = N_FFT // 2, audio.shape[-1]
+    if n > pad:
+        return F.pad(audio[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    idx = np.abs(np.arange(-pad, n + pad)) % max(2 * (n - 1), 1)
+    idx = np.where(idx >= n, 2 * (n - 1) - idx, idx)
+    return audio[:, torch.from_numpy(idx).to(audio.device)]
 
 
 def log_mel(audio: torch.Tensor, per_sample_max: bool = False,
@@ -190,21 +197,19 @@ def log_mel(audio: torch.Tensor, per_sample_max: bool = False,
 
     ``per_sample_max=False`` clamps to 8 below the peak of the whole batch,
     as the reference does (`module/align_model.py:84`); True uses each
-    sample's own peak.
+    sample's own peak. The leading dimensions are samples; audio under 160
+    samples gives zero frames.
     """
-    squeeze = audio.dim() == 1
-    if squeeze:
-        audio = audio[None, :]
-    audio = audio.to(torch.float32)
-    log_spec = log10_mel(reflect_pad(audio).contiguous(),
-                         audio.shape[-1] // HOP_LENGTH, n_mels)
-    if per_sample_max:
-        peak = log_spec.amax(dim=(-2, -1), keepdim=True)
-    else:
-        peak = log_spec.max()
-    log_spec = torch.maximum(log_spec, peak - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
-    return log_spec[0] if squeeze else log_spec
+    lead, n = audio.shape[:-1], audio.shape[-1]
+    audio = audio.reshape(-1, n).to(torch.float32)
+    log_spec = log10_mel(reflect_pad(audio).contiguous(), n // HOP_LENGTH, n_mels)
+    if log_spec.shape[-1]:
+        if per_sample_max:
+            peak = log_spec.amax(dim=(-2, -1), keepdim=True)
+        else:
+            peak = log_spec.max()
+        log_spec = (torch.maximum(log_spec, peak - 8.0) + 4.0) / 4.0
+    return log_spec.reshape(*lead, n_mels, log_spec.shape[-1])
 
 
 def pad_or_trim(array: torch.Tensor, length: int, axis: int = -1) -> torch.Tensor:

@@ -232,7 +232,10 @@ def viterbi_dp(lab: torch.Tensor, sil: torch.Tensor, labels: torch.Tensor,
         raise ValueError("viterbi_dp: shapes do not agree")
     if t_max == 0 or l_max == 0:
         raise ValueError("viterbi_dp: needs at least one frame and one label")
-    bt = torch.empty((bdim, t_max, 2 * l_max + 1), dtype=torch.uint8, device=lab.device)
+    # packed 2-bit backpointers that do not fit in the kernel's shared
+    # memory; 0 words when they all fit, and then it is never touched
+    words = kernels.library().la_viterbi_scratch_words(bdim, t_max, l_max)
+    bt = torch.empty((max(words, 1),), dtype=torch.int32, device=lab.device)
     onset = torch.empty((bdim, l_max), dtype=torch.int32, device=lab.device)
     offset = torch.empty_like(onset)
     if bdim:

@@ -24,8 +24,10 @@ import torch
 
 from lyricalignment_tpu_torch.models.align_model import AlignModel, forward_from_audio
 from lyricalignment_tpu_torch.train.losses import (
-    ctc_loss_grouped,
+    ctc_frames_needed,
+    ctc_per_example,
     frame_ce_loss_grouped,
+    group_mean,
     masked_ce_grouped,
 )
 from lyricalignment_tpu_torch.train.schedule import (
@@ -91,17 +93,27 @@ def init_train_state(model: AlignModel, tcfg: TrainConfig) -> Tuple[TrainState, 
     return TrainState(model, tx.init(dict(model.named_parameters()))), tx
 
 
-def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """numpy arrays (or tensors) -> tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def to_device(batch: Dict, device) -> Dict:
+    """numpy arrays (or tensors) -> tensors on ``device``, and beside
+    ``ctc_labels`` the frames each CTC target needs as a host array
+    (``ctc_frames_needed``, kept as it is when the batch has it already):
+    the CTC loss picks the targets that cannot fit from it without waiting
+    on the device."""
+    out = {k: v if k == "ctc_frames_needed" else torch.as_tensor(v).to(device)
+           for k, v in batch.items()}
+    if "ctc_labels" in batch and "ctc_frames_needed" not in batch:
+        out["ctc_frames_needed"] = ctc_frames_needed(
+            torch.as_tensor(batch["ctc_labels"]).cpu().numpy())
+    return out
 
 
-def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
+def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
                      generator: Optional[torch.Generator]
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss composition of the reference's ``train_step`` body
     (`train_multitask.py:250-325`) on one batch of tensors on the model's
-    device. ``generator`` draws the head's dropout (None: no dropout)."""
+    device, as ``to_device`` gives it. ``generator`` draws the head's
+    dropout (None: no dropout)."""
     _no_fused(tcfg)
     mcfg = model.cfg
     align_out, trans_logits = forward_from_audio(
@@ -119,11 +131,12 @@ def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict[str, torc
                                          with_silence_head=tcfg.use_ctc,
                                          vocab_size=tcfg.vocab_size)
         if tcfg.use_ctc:
-            words = align_out[:, :, : tcfg.vocab_size]
-            align_ctc = ctc_loss_grouped(words, batch["ctc_labels"], align_mask)
+            per_example = ctc_per_example(align_out[:, :, : tcfg.vocab_size],
+                                          batch["ctc_labels"], batch["ctc_frames_needed"])
+            align_ctc = group_mean(per_example, align_mask)
             # the reference also applies CTC to transcript-only samples
             # (`train_multitask.py:312-315`)
-            trans_ctc = ctc_loss_grouped(words, batch["ctc_labels"], trans_mask)
+            trans_ctc = group_mean(per_example, trans_mask)
     if trans_logits is not None:
         # two group means, summed: the reference's separate multitask and
         # transcript F.cross_entropy calls (`:285,308`)

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Times variants of the port's row log-sum-exp kernel
-(``lyricalignment_tpu_torch/csrc/lse.cu``) and log-mel kernel
-(``csrc/mel.cu``) on one NVIDIA GPU, at the alignment main path's shapes:
+(``lyricalignment_tpu_torch/csrc/lse.cu``), log-mel kernel (``csrc/mel.cu``)
+and Viterbi DP (``csrc/viterbi.cu``) on one NVIDIA GPU, at the alignment
+main path's shapes (the DP also at 16 x 3000 frames x 128 labels):
 
-    python3 scripts/torch_kernel_variants.py [lse | mel | VARIANT ...]
+    python3 scripts/torch_kernel_variants.py [lse | mel | viterbi | VARIANT ...]
 
 Each variant is the kernel source with the text substitutions listed in
 ``VARIANTS`` below, compiled on its own (one nvcc each, all started
-together) from a copy of ``csrc/``. ``lse`` / ``mel`` name every variant of
-one source; with no arguments every variant runs. A variant is checked
-against the kernel's plain version (``row_lse_plain``, ``log10_mel_plain``)
-and then timed in two rounds beside the one PyTorch call that computes the
-same function. The variants marked "timed only" leave out a part of the
-work to show what it costs; their outputs are wrong on purpose. ptxas'
+together) from a copy of ``csrc/`` with the source's own flags. ``lse`` /
+``mel`` / ``viterbi`` name every variant of one source; with no arguments
+every variant runs. A variant is checked against the kernel's plain version
+(``row_lse_plain``, ``log10_mel_plain``, ``viterbi_dp_plain``: exactly) and
+then timed in two rounds, beside the one PyTorch call that computes the
+same function where there is one. The variants marked "timed only" leave
+out a part of the work to show what it costs; their outputs are wrong on purpose. ptxas'
 register and spill lines of each variant's kernels are printed. With
 ``lse_as_built`` among the variants, the kernel is also run 80 times back to
 back with the card's clock and power draw sampled every 10 calls.
@@ -86,6 +88,33 @@ _LO_PRODUCTS = [("    wgmma_m64n256k8_tf32_rs(acc, lo[j], desc_hi + 2 * kk, accu
                  "    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, 1);",
                  "    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, accumulate || j > 0);")]
 
+# the scratch-size function of a variant that keeps more after the packed
+# backpointers: the packed words whether or not they flush, then `extra`
+def _scratch_words(extra):
+    return ("  if (batch <= 0 || make_plan(frames, l_max, &p) != cudaSuccess || !p.flush) "
+            "return 0;\n"
+            "  return (long long)batch * p.groups * p.gw;",
+            "  if (batch <= 0 || make_plan(frames, l_max, &p) != cudaSuccess) return 0;\n"
+            f"  return (long long)batch * p.groups * p.gw + {extra};")
+
+
+_RING = "constexpr int kRing = 2;"
+_CLOCKS = [
+    _scratch_words("4ll * batch"),
+    ("  const int live = min(max(num_frames[b], 0), frames);\n",
+     "  const int live = min(max(num_frames[b], 0), frames);\n"
+     "  const long long clk0 = clock64();\n"),
+    ("  const int nl = num_labels[b];\n",
+     "  const long long clk1 = clock64();\n  const int nl = num_labels[b];\n"),
+    ("  if (tid == 0 && (cur & 1)) {\n",
+     "  if (tid == 0) {\n"
+     "    uint32_t* clk = scratch + (size_t)batch * p.groups * p.gw + 4 * b;\n"
+     "    clk[0] = (uint32_t)(clk1 - clk0);\n"
+     "    clk[1] = (uint32_t)(clock64() - clk1);\n"
+     "    clk[2] = (uint32_t)live;\n"
+     "  }\n"
+     "  if (tid == 0 && (cur & 1)) {\n")]
+
 # name -> (source, timed only?, [(text, replacement) or (file, text, replacement), ...])
 VARIANTS = {
     "lse_as_built": ("lse.cu", False, []),
@@ -133,8 +162,53 @@ VARIANTS = {
         ("  float x[kSpan]; ", "  float x[kSpan + 8192]; "),
         ("static_assert(3 * (sizeof(Smem) + 1024) <= 228 * 1024 || kTile != 32",
          "static_assert(3 * (sizeof(Smem) + 1024) > 228 * 1024 || kTile != 32")]),
+    "viterbi_as_built": ("viterbi.cu", False, []),
+    # emissions loaded from device memory inside the chain, no ring
+    "viterbi_emissions_global": ("viterbi.cu", False, [
+        ("dp[s] = __fadd_rn(val, (s & 1) ? labrow[lab_base + (s >> 1)] : silv);",
+         "dp[s] = __fadd_rn(val, ((k0 + s) & 1) ? lab_b[(size_t)t * l_max + min((k0 + s) / 2, "
+         "l_max - 1)] : sil_b[t]);"),
+        ("    if (r < nchunks) load_chunk(r);\n", ""),
+        ("    if (ch + kRing < nchunks) load_chunk(ch + kRing);\n", "")]),
+    # a byte a state and step in device memory (after the packed scratch and
+    # the clock words), walked from there
+    "viterbi_bt_global_bytes": ("viterbi.cu", False, [
+        _scratch_words("4ll * batch + ((long long)batch * frames * (2 * l_max + 1) + 3) / 4"),
+        ("  uint32_t* scratch_b = scratch + (size_t)b * p.groups * p.gw;\n",
+         "  uint32_t* scratch_b = scratch + (size_t)b * p.groups * p.gw;\n"
+         "  unsigned char* bt8 = reinterpret_cast<unsigned char*>(\n"
+         "      scratch + (size_t)batch * p.groups * p.gw + 4 * batch);\n"),
+        ("        v[(2 * s) / 32] |= code << ((2 * s) % 32);",
+         "        if (k0 + s < n_states)\n"
+         "          bt8[((size_t)b * frames + t) * n_states + k0 + s] = (unsigned char)code;"),
+        ("      const int code = static_cast<int>((w >> (bit & 31)) & 3u);",
+         "      const int code = bt8[((size_t)b * frames + u + 1) * n_states + cur];")]),
+    # at least four warps (128 threads at K = 97, 79 of them past K)
+    "viterbi_block_sync_4_warps": ("viterbi.cu", False, [
+        ("  q.warps = (k + 32 * q.s - 1) / (32 * q.s);",
+         "  q.warps = max(4, (k + 32 * q.s - 1) / (32 * q.s));")]),
+    # one warp a sequence where one holds K (S = 4 at K = 97, 16 at K = 257):
+    # more states a lane, a one-warp barrier a step
+    "viterbi_one_warp": ("viterbi.cu", False, [
+        ("  while (q.s < kMaxS && k > 32 * 32 * q.s) q.s *= 2;",
+         "  while (q.s < kMaxS && k > 32 * q.s) q.s *= 2;")]),
+    "viterbi_ring_1": ("viterbi.cu", False, [(_RING, "constexpr int kRing = 1;")]),
+    "viterbi_ring_4": ("viterbi.cu", False, [(_RING, "constexpr int kRing = 4;")]),
+    # the forward pass alone: no walk, so no onsets or offsets
+    "viterbi_no_walk": ("viterbi.cu", True, [("    if (tid != 0) continue;", "    continue;")]),
+    # no emission loads (the ring holds whatever it held) / no backpointer stores
+    "viterbi_no_loads": ("viterbi.cu", True, [
+        ("    if (r < nchunks) load_chunk(r);\n", ""),
+        ("    if (ch + kRing < nchunks) load_chunk(ch + kRing);\n", "")]),
+    "viterbi_no_bt_stores": ("viterbi.cu", True, [
+        ("        for (int n = 0; n < NW; ++n) bt_s[wi * p.gw + tid * NW + n] = word[n];",
+         "        for (int n = 0; n < NW; ++n) if (word[n] == 0xdeadbeefu) bt_s[0] = 0;")]),
+    # as built, with clock64 around the forward pass and the walk of each
+    # sequence written after the packed scratch (cycles, cycles, live frames)
+    "viterbi_phase_clocks": ("viterbi.cu", False, _CLOCKS),
 }
-LAUNCHERS = {"lse.cu": "la_row_lse", "mel.cu": "la_log10_mel"}
+LAUNCHERS = {"lse.cu": "la_row_lse", "mel.cu": "la_log10_mel", "viterbi.cu": "la_viterbi"}
+KERNEL_NAMES = ("row_lse_kernel", "log10_mel_kernel", "viterbi_kernel")
 
 
 def patched_csrc(name: str, root: str) -> str:
@@ -167,6 +241,7 @@ def compile_variants(names, root):
         csrc = patched_csrc(name, root)
         so = os.path.join(csrc, "variant.so")
         cmd = ([build._nvcc()] + build.ARCH_FLAGS + build.COMMON_FLAGS
+               + build.PER_SOURCE_FLAGS.get(source, [])
                + ["-shared", "-I", csrc, "-o", so, os.path.join(csrc, source)])
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
@@ -177,8 +252,7 @@ def compile_variants(names, root):
             raise RuntimeError(f"nvcc failed on variant {name}:\n{out[-4000:]}")
         lines, found = out.splitlines(), []
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and ("row_lse_kernel" in line
-                                                       or "log10_mel_kernel" in line):
+            if "Compiling entry function" in line and any(k in line for k in KERNEL_NAMES):
                 found.append(" ".join(x.strip().replace("ptxas info    : ", "")
                                       for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x))
         print(f"[{name}] ptxas: {found}", flush=True)
@@ -186,6 +260,9 @@ def compile_variants(names, root):
         fn = getattr(lib, LAUNCHERS[VARIANTS[name][0]])
         fn.argtypes = build.SIGNATURES[LAUNCHERS[VARIANTS[name][0]]]
         fn.restype = ctypes.c_int
+        if VARIANTS[name][0] == "viterbi.cu":
+            lib.la_viterbi_scratch_words.argtypes = [ctypes.c_int] * 3
+            lib.la_viterbi_scratch_words.restype = ctypes.c_longlong
         libs[name] = lib
     return libs
 
@@ -293,11 +370,68 @@ def time_mel(libs):
         print(f"[{name}] ms {[round(x, 4) for x in ms]}")
 
 
+def time_viterbi(libs):
+    """Each variant at the main path's shape (16 x 1500 frames x 48 labels)
+    and at 16 x 3000 x 128, exact against viterbi_dp_plain, timed in two
+    rounds."""
+    import torch
+
+    from chip_smoke import time_ms
+    from lyricalignment_tpu_torch.ops import viterbi
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for t, l_max in ((1500, 48), (3000, 128)):
+        b = 16
+        logp = torch.log_softmax(torch.randn(b, t, l_max + 1, device="cuda", generator=g) * 3, -1)
+        lab = logp[..., :l_max].clamp(min=-1000.0).contiguous()
+        sil = logp[..., l_max].clamp(min=-1000.0).contiguous()
+        labels = torch.randint(2, 400, (b, l_max), device="cuda", generator=g, dtype=torch.int32)
+        labels[:, 5] = labels[:, 4]
+        nl = torch.full((b,), l_max, dtype=torch.int32, device="cuda")
+        nf = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        nf[1], nf[3] = t * 4 // 5, 60
+        ref = viterbi.viterbi_dp_plain(lab, sil, labels, nl, nf)
+        on, off = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+        for rnd in range(2):
+            for name, lib in libs.items():
+                # the variant's scratch (its clock words last, where it has them)
+                words = lib.la_viterbi_scratch_words(b, t, l_max)
+                scratch = torch.zeros(max(words, 1), dtype=torch.int32, device="cuda")
+
+                def call():
+                    return lib.la_viterbi(lab.data_ptr(), sil.data_ptr(), labels.data_ptr(),
+                                          nl.data_ptr(), nf.data_ptr(), scratch.data_ptr(),
+                                          on.data_ptr(), off.data_ptr(), b, t, l_max, stream)
+                if call() != 0:
+                    raise RuntimeError(f"variant {name}: launch refused")
+                torch.cuda.synchronize()
+                if rnd == 0:
+                    exact = torch.equal(on, ref[0]) and torch.equal(off, ref[1])
+                    timed_only = VARIANTS[name][1]
+                    print(f"[{name}] T={t} L={l_max}: "
+                          f"{'(timed only)' if timed_only else 'exact' if exact else 'FAIL'}",
+                          flush=True)
+                    if not exact and not timed_only:
+                        raise AssertionError(f"variant {name} disagrees with viterbi_dp_plain")
+                    if name == "viterbi_phase_clocks":
+                        clk = scratch[words - 4 * b:words].view(b, 4)[:, :3].cpu().tolist()
+                        for i, (fwd, walk, live) in enumerate(clk):
+                            steps = max(live - 1, 1)
+                            print(f"[{name}] T={t} sequence {i}: {live} frames, forward "
+                                  f"{fwd} cycles ({fwd / steps:.1f} a step), walk {walk} cycles "
+                                  f"({walk / steps:.1f} a step)")
+                times.setdefault((name, t), []).append(time_ms(call, reps=10, warmup=2))
+    for (name, t), ms in times.items():
+        print(f"[{name}] T={t}: ms {[round(x, 4) for x in ms]}")
+
+
 def main(argv) -> int:
     import torch
 
-    families = {"lse": [n for n in VARIANTS if n.startswith("lse_")],
-                "mel": [n for n in VARIANTS if n.startswith("mel_")]}
+    families = {f: [n for n in VARIANTS if n.startswith(f + "_")]
+                for f in ("lse", "mel", "viterbi")}
     names = [n for arg in (argv or list(families)) for n in families.get(arg, [arg])]
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -310,6 +444,9 @@ def main(argv) -> int:
             time_lse(lse)
         if mel:
             time_mel(mel)
+        dp = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "viterbi.cu"}
+        if dp:
+            time_viterbi(dp)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip())

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path can reach: ragged last tiles, sequences
-shorter than a tile, 128 mel bands, silent and full-scale audio, K = 257
-Viterbi states, zero-frame and zero-label rows, the CTC column slice and the
+shorter than a tile, 128 mel bands, silent and full-scale audio, Viterbi
+state counts from 3 to 16601 (every states-a-lane plan, 1 to 32 warps a
+sequence) over 1 to 3000 frames (backpointers in shared memory and
+flushed), tied emissions,
+zero-frame and zero-label rows, the CTC column slice and the
 row log-sum-exp's tiles and column ranges, and the attention backward with
 and without a key bias. ``chip_smoke.py`` covers the main
 path's own shapes. On a machine with an NVIDIA GPU (the repository's
@@ -502,19 +505,36 @@ def test_row_lse_refusals(dev):
     assert row_lse(h[:0], w, b).shape == (0,)
 
 
-@pytest.mark.parametrize("frames,l_max", [(37, 5), (300, 128)])
-def test_viterbi_exact(dev, frames, l_max):
+# l_max 1 .. 1000: two states a lane on 1, 1, 2, 5, 10 and 32 warps; 1100 /
+# 2500 / 5000 / 8300: 4 / 8 / 16 / 32 states a lane (32: two backpointer
+# words a lane a step). 1500 x 300, 3000 x 128 and every larger product
+# flush their backpointers through the scratch.
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("frames", [1, 2, 37, 1500, 3000])
+@pytest.mark.parametrize("l_max", [1, 16, 48, 128, 300, 1000, 1100, 2500, 5000, 8300])
+def test_viterbi_exact(dev, frames, l_max, kind):
+    """Onsets and offsets bit-equal to the plain version, on random or
+    constant (all tied) emissions, with full, short, zero, one and too many
+    frames and zero / one / partial label counts; a second run gives the
+    same bits."""
     from lyricalignment_tpu_torch.ops.viterbi import viterbi_dp, viterbi_dp_plain
 
-    g = _gen(frames)
+    g = _gen(frames + l_max)
     b = 5
-    logp = torch.log_softmax(torch.randn(b, frames, l_max + 1, device=dev, generator=g) * 3, -1)
-    lab = logp[..., :l_max].clamp(min=-1000.0).contiguous()
-    sil = logp[..., l_max].clamp(min=-1000.0).contiguous()
+    if kind == "ties":
+        lab = torch.full((b, frames, l_max), -2.0, device=dev)
+        sil = torch.full((b, frames), -2.0, device=dev)
+    else:
+        logp = torch.log_softmax(torch.randn(b, frames, l_max + 1, device=dev, generator=g) * 3,
+                                 -1)
+        lab = logp[..., :l_max].clamp(min=-1000.0).contiguous()
+        sil = logp[..., l_max].clamp(min=-1000.0).contiguous()
     labels = torch.randint(1, 6, (b, l_max), device=dev, generator=g, dtype=torch.int32)
-    nl = torch.tensor([l_max, 3, 0, 1, l_max], dtype=torch.int32, device=dev)
+    nl = torch.tensor([l_max, min(3, l_max), 0, 1, l_max], dtype=torch.int32, device=dev)
     nf = torch.tensor([frames, frames // 2, 0, 1, frames + 7], dtype=torch.int32, device=dev)
     got = viterbi_dp(lab, sil, labels, nl, nf)
     ref = viterbi_dp_plain(lab, sil, labels, nl, nf)
-    for x, y in zip(got, ref):
+    again = viterbi_dp(lab, sil, labels, nl, nf)
+    for x, y, z in zip(got, ref, again):
         assert torch.equal(x, y)
+        assert torch.equal(x, z)

@@ -8,7 +8,11 @@ a machine without a GPU can check it:
 * the tables of ``ops/mel.py:_fft_tables`` driven through the staged
   transform of ``csrc/mel.cu`` (a frame's 400 windowed samples as 200
   complex points, 8 x 25, then the even/odd join) in numpy, against
-  ``np.fft.rfft``.
+  ``np.fft.rfft``;
+* the Viterbi DP of ``csrc/viterbi.cu`` as its threads run it (states in
+  lanes, the shuffled edge states, 2-bit backpointers packed in words and
+  flushed in windows, the walk from two prefetched lanes) in numpy, exactly
+  equal to ``viterbi_dp_plain`` and the JAX ``_viterbi_dp``.
 """
 
 import math
@@ -140,3 +144,184 @@ def test_staged_power_matches_the_plain_version():
     got = np.log10(np.maximum(power @ mel.mel_filterbank(n_mels=80).T.astype(np.float64), 1e-10))
     ref = mel.log10_mel_plain(torch.from_numpy(audio)[None], n_frames, 80)[0].numpy()
     np.testing.assert_allclose(got.T, ref, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# csrc/viterbi.cu: the DP's lane layout, shuffles, 2-bit packing and the
+# windowed backtrace, in numpy
+# ---------------------------------------------------------------------------
+
+_NEG_BIG, _NEG_INF = np.float32(-1.0e7), np.float32(-1.0e30)
+
+
+def _lane_plan(k_dim):
+    """(S states a lane, warps a sequence) as ``make_plan`` in
+    csrc/viterbi.cu chooses them for K states."""
+    s = 2
+    while s < 32 and k_dim > 32 * 32 * s:
+        s *= 2
+    assert k_dim <= 32 * 32 * s
+    return s, -(-k_dim // (32 * s))
+
+
+def _viterbi_layout(lab, sil, labels, nl, nf, window_groups):
+    """The kernel's DP one sequence at a time: thread j of the sequence owns
+    states [jS, jS + S) of a row in "registers"; its first two states' left
+    neighbours are the previous thread's last two (``__shfl_up_sync`` in a
+    warp, the published edge across warps), NEG_INF before thread 0; every
+    thread of the warp(s) steps, dead ones included; a state's best
+    predecessor value is max(p0, p1), or p2 where the skip is allowed and p2
+    is at least that. Odd states read the lab
+    row at k0/2 + s/2 (k0 = jS is even; a thread past K reads from the row's
+    start, and a row's overread runs into the padding), even ones the sil
+    value. Codes 0/1/2 pack 2 bits a state, G = 16 / S steps of a lane's S
+    states to a 32-bit word, into a window of ``window_groups`` groups,
+    flushed to the scratch when full with steps left. The walk keeps the
+    state as (lane, slot), reads row u's word from the two lanes it fetched
+    for that row a step ahead (the current state's lane and the one before),
+    reads the windows back from the last, and writes each state's onset and
+    offset as its run of frames ends."""
+    bdim, t_max, l_max = lab.shape
+    k_dim = 2 * l_max + 1
+    S, warps = _lane_plan(k_dim)
+    threads = 32 * warps
+    lanes, nw = -(-k_dim // S), (2 * S + 31) // 32
+    g = 16 // S if S <= 16 else 1
+    gw = lanes * nw
+    groups = -(-max(t_max - 1, 0) // g)
+    wg = min(max(groups, 1), window_groups)
+    onset = np.full((bdim, l_max), t_max + 1, np.int32)
+    offset = np.zeros((bdim, l_max), np.int32)
+    j = np.arange(threads)
+    k = j[:, None] * S + np.arange(S)[None, :]                     # [threads, S]
+    lab_base = np.where(j * S < k_dim, (j * S) // 2, 0)
+    slot = np.arange(S)
+    lab_idx = lab_base[:, None] + slot // 2                      # odd slots' entries
+    odd_slot = (slot & 1) == 1
+    for b in range(bdim):
+        live = min(max(int(nf[b]), 0), t_max)
+        lab_rows = np.concatenate([lab[b], np.zeros((t_max, 32), np.float32)], 1)
+        ids = labels[b]
+        dp = np.where(k == 0, sil[b, 0],
+                      np.where(k == 1, lab[b, 0, 0], _NEG_BIG)).astype(np.float32)
+        skip = ((k & 1) == 1) & (k >= 3) & (k < k_dim) & (
+            ids[np.clip(k // 2, 0, l_max - 1)] != ids[np.clip(k // 2 - 1, 0, l_max - 1)])
+        bt_s = np.zeros(wg * gw, np.uint32)
+        scratch = np.zeros(max(groups, 1) * gw, np.uint32)
+        word = np.zeros((threads, nw), np.uint64)
+        gp = wi = win = 0
+        for t in range(1, live):
+            a = np.concatenate([[_NEG_INF], dp[:-1, S - 1]])
+            c = np.concatenate([[_NEG_INF], dp[:-1, S - 2]])
+            p2 = np.concatenate([c[:, None], a[:, None], dp[:, :S - 2]], 1)
+            p1 = np.concatenate([a[:, None], dp[:, :-1]], 1)
+            m = np.maximum(dp, p1)                             # the kernel's fmaxf
+            sk = skip & (p2 >= m)
+            val = np.where(sk, p2, m)
+            code = np.where(sk, 2, np.where(dp > p1, 0, 1)).astype(np.uint64)
+            em = np.where(odd_slot, lab_rows[t][lab_idx], sil[b, t])
+            dp = (val + em).astype(np.float32)                  # one float32 add
+            for n in range(nw):
+                mine = (2 * slot) // 32 == n
+                v = (code[:, mine] << (2 * slot[mine] % 32).astype(np.uint64)).sum(1)
+                word[:, n] |= v << np.uint64(gp * 2 * S)
+            if gp == g - 1 or t == live - 1:
+                for n in range(nw):
+                    bt_s[wi * gw + np.arange(lanes) * nw + n] = word[:lanes, n]
+                word[:] = 0
+                if gp == g - 1:
+                    wi += 1
+                    if wi == wg and t < live - 1:
+                        scratch[win * wg * gw:(win + 1) * wg * gw] = bt_s
+                        win, wi = win + 1, 0
+            gp = 0 if gp == g - 1 else gp + 1
+        if live == 0:
+            continue
+        flat = dp.reshape(-1)
+        ends = [2 * int(nl[b]), 2 * int(nl[b]) - 1]
+        i_sil, i_lab = (min(max(i + k_dim if i < 0 else i, 0), k_dim - 1) for i in ends)
+        cur = i_sil if flat[i_sil] > flat[i_lab] else i_lab
+        lane_c, slot_c = divmod(cur, S)
+        run_end, n_steps = live - 1, live - 1
+        last_win = (n_steps - 1) // g // wg if n_steps > 0 else -1
+
+        def fetch(u, ln, w):  # row u's words of lanes ln and ln - 1
+            q = (u // g - w * wg) * gw
+            return ([int(bt_s[q + ln * nw + n]) for n in range(nw)],
+                    [int(bt_s[q + max(ln - 1, 0) * nw + n]) for n in range(nw)])
+
+        for w in range(last_win, -1, -1):
+            if w != last_win:
+                bt_s = scratch[w * wg * gw:(w + 1) * wg * gw].copy()
+            u_lo, u_hi = w * wg * g, min(n_steps, (w + 1) * wg * g) - 1
+            fetched_lane, (here, below) = lane_c, fetch(u_hi, lane_c, w)
+            for u in range(u_hi, u_lo - 1, -1):
+                ahead = (lane_c, fetch(u - 1, lane_c, w) if u > u_lo else None)
+                bit = 2 * ((u % g) * S + slot_c)
+                words = here if lane_c == fetched_lane else below
+                code = (words[bit // 32] >> (bit % 32)) & 3
+                assert cur == lane_c * S + slot_c and lane_c >= fetched_lane - 1
+                if code:
+                    if cur & 1:
+                        onset[b, cur >> 1], offset[b, cur >> 1] = u + 1, run_end + 1
+                    run_end, cur = u, cur - code
+                    lane_c, slot_c = divmod(cur, S)
+                if ahead[1] is not None:
+                    fetched_lane, (here, below) = ahead[0], ahead[1]
+        if cur & 1:
+            onset[b, cur >> 1], offset[b, cur >> 1] = 0, run_end + 1
+    return onset, offset
+
+
+def _viterbi_case(l_max, kind, frames=41, bdim=5, seed=0):
+    rng = np.random.default_rng(seed + l_max)
+    if kind == "ties":   # every emission equal: the tie rules decide
+        lab = np.full((bdim, frames, l_max), -1.5, np.float32)
+        sil = np.full((bdim, frames), -1.5, np.float32)
+    else:
+        logp = rng.standard_normal((bdim, frames, l_max + 1)) * 3
+        logp = np.maximum(logp - np.log(np.exp(logp).sum(-1, keepdims=True)), -1000.0)
+        lab, sil = logp[..., :l_max].astype(np.float32), logp[..., l_max].astype(np.float32)
+    hi = 3 if kind == "repeats" else 400
+    labels = rng.integers(1, hi, (bdim, l_max)).astype(np.int32)
+    nl = np.array([l_max, 0, l_max // 2 + 1, 1, l_max], np.int32)[:bdim]
+    nf = np.array([frames, 1, 0, frames + 5, frames // 2], np.int32)[:bdim]
+    return lab, sil, labels, nl, nf
+
+
+# K = 31 / 33 / 95 / 97 / 257 / 501 / 601 / 2001: S = 2 on 1 / 2 / 2 / 2 / 5 / 8 /
+# 10 / 32 warps; K = 2201 / 5001 / 10001: S = 4 / 8 / 16 on 18 / 20 / 20 warps;
+# K = 16601: S = 32 (two words a lane a step) on 17 warps
+@pytest.mark.parametrize("window", ["fits", "flushed"])
+@pytest.mark.parametrize("kind", ["random", "ties", "repeats"])
+@pytest.mark.parametrize("l_max", [15, 16, 47, 48, 128, 250, 300, 1000, 1100, 2500, 5000,
+                                   8300])
+def test_viterbi_layout_matches_plain_and_jax(l_max, kind, window):
+    """The layout's onsets and offsets equal ``viterbi_dp_plain``'s and the
+    JAX ``_viterbi_dp``'s exactly, with the whole backtrace in one window
+    and with windows of two groups flushed and read back."""
+    import jax
+    import jax.numpy as jnp
+
+    from lyricalignment_tpu.ops import viterbi as jv
+    from lyricalignment_tpu_torch.ops.viterbi import viterbi_dp_plain
+
+    # 17 frames above 2048 states (S >= 4: still 4 or more groups of steps)
+    case = _viterbi_case(l_max, kind, frames=41 if l_max <= 1000 else 17)
+    got = _viterbi_layout(*case, window_groups=10 ** 9 if window == "fits" else 2)
+    plain = viterbi_dp_plain(*(torch.from_numpy(x) for x in case))
+    ref = jax.vmap(jv._viterbi_single_pos)(*(jnp.asarray(x) for x in case))
+    for g, p, r in zip(got, plain, ref):
+        np.testing.assert_array_equal(g, p.numpy())
+        np.testing.assert_array_equal(g, np.asarray(r))
+
+
+def test_viterbi_lane_plan():
+    """Two states a lane (a walk step then stays within two lanes) on
+    ceil(K / 64) warps up to 32 warps; larger K doubles the states a lane
+    (4, 8, 16, 32) until 32 warps hold them."""
+    assert [_lane_plan(k) for k in (3, 31, 64, 65, 97, 257, 511, 512, 2048)] == [
+        (2, 1), (2, 1), (2, 1), (2, 2), (2, 2), (2, 5), (2, 8), (2, 8), (2, 32)]
+    assert _lane_plan(2049) == (4, 17) and _lane_plan(4097) == (8, 17)
+    assert _lane_plan(8193) == (16, 17) and _lane_plan(16384) == (16, 32)
+    assert _lane_plan(16385) == (32, 17) and _lane_plan(32768) == (32, 32)

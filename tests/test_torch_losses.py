@@ -5,9 +5,9 @@ logits, a CTC target of length zero and an empty sample group (0). The CE
 gradients agree with JAX's within rel-L2 1e-5. The CTC gradient is held
 against a float64 computation instead: optax's float32 CTC gradient is
 itself ~2e-3 from it over 1500 frames, the port's ``F.ctc_loss`` within
-1e-5. A CTC target that cannot fit its frames gives a finite loss within
-rtol 1e-3 of optax's in both packages; its gradient is zero in the port and
-that of optax's epsilon path in JAX."""
+1e-5. A CTC target that cannot fit its frames takes optax's epsilon
+recursion in the port too: its loss within rtol 1e-5 and its gradient within
+atol 1e-4 of JAX's."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +17,7 @@ import torch
 
 from lyricalignment_tpu.train import losses as J
 from lyricalignment_tpu_torch.train import losses as P
+from lyricalignment_tpu_torch.train.trainer import to_device
 from tests.torch_port_helpers import rel_l2
 
 B, T, V = 3, 1500, 10
@@ -30,6 +31,12 @@ def inputs(rng):
     ctc = np.where(np.arange(6)[None, :] < np.array([[3], [0], [5]]),
                    rng.integers(1, V - 1, (B, 6)), -100)  # sample 1: zero-length target
     return logits, frames.astype(np.int32), ctc.astype(np.int32)
+
+
+def _ctc_grouped(logits, labels, mask):
+    """The port's grouped CTC, with the frames each target needs counted on
+    the host as the trainer counts them."""
+    return P.ctc_loss_grouped(logits, labels, mask, P.ctc_frames_needed(labels.numpy()))
 
 
 def _both(jax_fn, torch_fn, logits, *arrays):
@@ -78,11 +85,11 @@ def test_masked_and_transcript_ce(inputs):
 def test_ctc(inputs, mask):
     logits, _, ctc = inputs
     got, ref, g, _ = _both(lambda x, lab, m: J.ctc_loss_grouped(x[:, :, :V], lab, m),
-                           lambda x, lab, m: P.ctc_loss_grouped(x[:, :, :V], lab, m),
+                           lambda x, lab, m: _ctc_grouped(x[:, :, :V], lab, m),
                            logits, ctc, mask)
     np.testing.assert_allclose(got, ref, rtol=1e-5)
     x64 = torch.from_numpy(logits).double().requires_grad_()
-    P.ctc_loss_grouped(x64[:, :, :V], torch.from_numpy(ctc), torch.from_numpy(mask)).backward()
+    _ctc_grouped(x64[:, :, :V], torch.from_numpy(ctc), torch.from_numpy(mask)).backward()
     if mask.any():
         assert rel_l2(g, x64.grad.numpy()) < 1e-5
     else:
@@ -92,38 +99,74 @@ def test_ctc(inputs, mask):
 def test_ctc_zero_length_target_alone(inputs):
     """A sample with no labels: the NLL of all-blank, divided by 1."""
     logits, _, ctc = inputs
-    got = float(P.ctc_loss(torch.from_numpy(logits[1:2, :, :V]), torch.from_numpy(ctc[1:2])))
+    got = float(P.ctc_loss(torch.from_numpy(logits[1:2, :, :V]), torch.from_numpy(ctc[1:2]),
+                           P.ctc_frames_needed(ctc[1:2])))
     ref = float(J.ctc_loss(jnp.asarray(logits[1:2, :, :V]), jnp.asarray(ctc[1:2])))
     blank = -torch.log_softmax(torch.from_numpy(logits[1, :, :V]).double(), -1)[:, 0].sum()
     np.testing.assert_allclose(got, ref, rtol=1e-5)
     np.testing.assert_allclose(got, float(blank), rtol=1e-5)
 
 
-@pytest.mark.parametrize("labels,why", [([1, 2, 3, 4, 5], "longer than the frames"),
-                                        ([3, 3, 3], "repeats need blanks between")],
-                         ids=["too_long", "repeats"])
-def test_ctc_infeasible_target(rng, labels, why):
-    """Four frames; sample 0 can fit its two labels, sample 1 cannot fit
-    its own. Both packages stay finite. The port gives the infeasible
-    sample the NLL 1e5 (optax: 1e5 plus its best epsilon path's few nats, so
-    the losses agree within rtol 1e-3) and no gradient, where optax sends
-    that path's gradient (entries up to ~0.5 / target length) into the
-    logits; the feasible sample's gradient is untouched by its neighbour."""
+@pytest.mark.parametrize("labels", [[1, 2, 3, 4, 5], [3, 3, 3], [2, 2, 6, 6]],
+                         ids=["too_long", "repeats", "repeated_pairs"])
+def test_ctc_infeasible_target(rng, labels):
+    """Four frames; sample 0 fits its two labels, sample 1 cannot fit its
+    own (too many labels, or repeats that need blanks between). Sample 1
+    takes optax's epsilon recursion: the loss equals JAX's to rtol 1e-5 and
+    the gradient to atol 1e-4, that path's gradient included (entries up to
+    ~0.5 / target length); the feasible sample's gradient is untouched by its
+    neighbour."""
     t = 4
     logits = (rng.standard_normal((2, t, V)) * 2).astype(np.float32)
     ctc = np.full((2, 5), -100, np.int32)
     ctc[0, :2] = [4, 7]
     ctc[1, :len(labels)] = labels
+    assert P.ctc_frames_needed(ctc).tolist() == [2, len(labels) + sum(
+        a == b for a, b in zip(labels, labels[1:]))]
     mask = np.array([True, True])
-    got, ref, g, rg = _both(J.ctc_loss_grouped, P.ctc_loss_grouped, logits, ctc, mask)
-    assert np.isfinite(got) and np.isfinite(ref) and np.isfinite(g).all() and np.isfinite(rg).all()
-    np.testing.assert_allclose(got, ref, rtol=1e-3)
-    assert got > 0.5 * P.INFEASIBLE_NLL / len(labels) / 2  # the mean of two samples
+    got, ref, g, rg = _both(J.ctc_loss_grouped, _ctc_grouped, logits, ctc, mask)
+    assert np.isfinite(got) and np.isfinite(g).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+    np.testing.assert_allclose(g, rg, rtol=0, atol=1e-4)
+    assert got > 0.5 * -P.LOG_EPSILON / len(labels) / 2  # the mean of two samples
+    assert 1e-2 < np.abs(g[1]).max() < 1.0               # the epsilon path's gradient
 
-    alone, alone_ref, g_alone, rg_alone = _both(J.ctc_loss_grouped, P.ctc_loss_grouped,
+    alone, alone_ref, g_alone, rg_alone = _both(J.ctc_loss_grouped, _ctc_grouped,
                                                 logits[:1], ctc[:1], mask[:1])
     np.testing.assert_allclose(alone, alone_ref, rtol=1e-5)
     np.testing.assert_allclose(g[0], g_alone[0] / 2, rtol=1e-6, atol=1e-9)
     assert rel_l2(g[0], rg[0]) < 1e-4 and rel_l2(g_alone, rg_alone) < 1e-4
-    assert not g[1].any()
-    assert 1e-2 < np.abs(rg[1]).max() < 1.0  # optax's epsilon-path gradient
+
+
+@pytest.mark.parametrize("host_frames", [False, True], ids=["labels_read_back", "from_host"])
+def test_ctc_mixed_batch(rng, host_frames):
+    """One batch of five frames with a feasible target, one too long, one
+    whose repeats cannot fit, a zero-length one and a masked-out infeasible
+    one, through the trainer's route: ``to_device`` counts the frames each
+    target needs on the host (from the numpy labels, or from a label tensor
+    it reads back), ``ctc_per_example`` runs once and ``group_mean`` takes
+    both sample groups from it. Each group's loss (rtol 1e-5) and gradient
+    (atol 1e-4) equal JAX's ``ctc_loss_grouped``, as does their sum's; the
+    masked-out sample gets no gradient from the first group."""
+    t = 5
+    logits = (rng.standard_normal((5, t, V)) * 2).astype(np.float32)
+    ctc = np.full((5, 7), -100, np.int32)
+    for row, labels in enumerate([[4, 7, 2], [1, 2, 3, 4, 5, 6], [3, 3, 3, 4], [],
+                                  [2, 2, 6, 6, 1]]):
+        ctc[row, :len(labels)] = labels
+    mask = np.array([True, True, True, True, False])
+    batch = to_device({"ctc_labels": ctc if host_frames else torch.from_numpy(ctc)}, "cpu")
+    assert batch["ctc_frames_needed"].tolist() == [3, 6, 6, 0, 7]
+
+    def groups(x, lab, m, both):
+        per_example = P.ctc_per_example(x, lab, batch["ctc_frames_needed"])
+        return P.group_mean(per_example, m) + (P.group_mean(per_example, ~m) if both else 0.0)
+
+    for both in (False, True):
+        got, ref, g, rg = _both(
+            lambda x, lab, m: J.ctc_loss_grouped(x, lab, m) + (
+                J.ctc_loss_grouped(x, lab, ~m) if both else 0.0),
+            lambda x, lab, m: groups(x, lab, m, both), logits, ctc, mask)
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+        np.testing.assert_allclose(g, rg, rtol=0, atol=1e-4)
+        assert np.abs(g[1:3]).max() > 1e-2 and (np.abs(g[4]).max() > 1e-2) == both

@@ -46,6 +46,48 @@ def test_log_mel_unbatched(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("per_sample_max", [False, True])
+def test_log_mel_leading_dimensions(rng, per_sample_max):
+    """[2, 3, T] audio: each leading index a sample. The JAX function's
+    einsum takes one batch dimension, so it gets the same 6 samples as
+    [6, T] (the batch-wide peak is the same) and its output is reshaped."""
+    audio = rng.standard_normal((2, 3, 4000)).astype(np.float32) * 0.1
+    audio[1, 2, 1500:] = 0.0
+    ref = np.asarray(log_mel_spectrogram(jnp.asarray(audio.reshape(6, -1)),
+                                         per_sample_max=per_sample_max))
+    got = port_mel.log_mel(torch.from_numpy(audio), per_sample_max=per_sample_max)
+    assert got.shape == (2, 3, 80, 25)
+    np.testing.assert_allclose(got.numpy(), ref.reshape(2, 3, 80, 25), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("samples", [150, 161, 200, 320])
+def test_log_mel_short_audio(rng, samples):
+    """Audio no longer than the 200-sample pad: the reflection repeats as
+    ``jnp.pad``'s does (numpy's rule). Under 160 samples there is no frame:
+    the port returns [..., n_mels, 0], where the JAX function raises at its
+    peak (the max of an empty spectrum). Two clips, so the batch's peak
+    clamps the bands 8 decades under it: a lone reflected frame can hold a
+    band there, where float32 DFTs differ in the 4th digit."""
+    audio = rng.standard_normal((2, samples)).astype(np.float32) * 0.1
+    got = port_mel.log_mel(torch.from_numpy(audio))
+    assert got.shape == (2, 80, samples // 160)
+    if samples < 160:
+        with pytest.raises(ValueError, match="zero-size"):
+            log_mel_spectrogram(jnp.asarray(audio))
+        return
+    ref = np.asarray(log_mel_spectrogram(jnp.asarray(audio)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_reflect_pad_matches_numpy(rng):
+    """The centre pad against ``np.pad(mode="reflect")`` from 1 sample to
+    well past the pad."""
+    for n in (1, 2, 3, 150, 200, 201, 450):
+        audio = rng.standard_normal((2, n)).astype(np.float32)
+        got = port_mel.reflect_pad(torch.from_numpy(audio)).numpy()
+        np.testing.assert_array_equal(got, np.pad(audio, ((0, 0), (200, 200)), mode="reflect"))
+
+
 @pytest.mark.parametrize("length", [5, 8, 12])
 def test_pad_or_trim(rng, length):
     x = rng.standard_normal((2, 3, 8)).astype(np.float32)
