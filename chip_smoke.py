@@ -1111,6 +1111,375 @@ def phase_train_cli(dev, tmp):
         f"({sum(len(r) for r in results)} characters)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: transcription (KV-cached decoding, beam search, long-form)
+# ---------------------------------------------------------------------------
+
+TR_WINDOWS, TR_BEAM, TR_MAX_NEW = 8, 5, 224   # the transcript CLI's defaults, 8 windows
+# a batch of TR_WINDOWS windows: the log-mel once, encoder attention once a layer
+TRANSCRIBE_KERNELS = {"la_log10_mel": 1, "la_bias_attention": 24}
+TR_SECONDS = (12.0, 30.0, 70.0)
+
+
+def _tiny_whisper(dev, seed):
+    """A float32 whisper of width 64 (one head of 64, the attention
+    kernel's width) with the real vocabulary and a 64-token context, in
+    eval mode on ``dev``; random weights from ``seed``, the decoder's
+    positions and token embedding made larger so its picks do not tie."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WhisperConfig
+
+    wcfg = WhisperConfig(n_vocab=51865, n_audio_state=64, n_audio_head=1, n_audio_layer=2,
+                         n_text_ctx=64, n_text_state=64, n_text_head=1, n_text_layer=2,
+                         onepass_encoder=True)
+    model = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=32, output_dim=64))
+    g = torch.Generator().manual_seed(seed)
+    init_weights(model, g)
+    dec = model.whisper_model.decoder
+    with torch.no_grad():
+        dec.positional_embedding.normal_(0.0, 0.5, generator=g)
+        dec.token_embedding.weight.mul_(20.0)
+    return model.whisper_model.to(dev).eval()
+
+
+def _write_ranks(tmp):
+    """A synthetic byte-level BPE ranks file (each byte its own token) in
+    ``tmp``: nothing is downloaded. Returns its path."""
+    import base64
+
+    ranks = os.path.join(tmp, "ranks.tiktoken")
+    if not os.path.exists(ranks):
+        with open(ranks, "w") as f:
+            f.write("\n".join(base64.b64encode(bytes([i])).decode() + f" {i}"
+                              for i in range(256)))
+    return ranks
+
+
+def _transcript_args(**kw):
+    from types import SimpleNamespace
+
+    base = dict(is_mixture=0, batch_size=4, beam_size=TR_BEAM, max_new_tokens=16,
+                use_groundtruth=True, temperature_fallback=False, fast_windows=False,
+                length_penalty=None, patience=None, no_condition_on_previous_text=False,
+                seed=114514, decode_group=1)
+    return SimpleNamespace(**{**base, **kw})
+
+
+def phase_transcribe_tiny(dev, tmp):
+    """(a): a tiny float32 model through transcribe_records (beam 5 with
+    long-form, greedy with --fast-windows) and transcribe_longform on the
+    GPU and on the CPU plain path; tokens and segments must be equal. Then
+    the 70 s song's whole-song log-mel (120 s padded, 12,000 frames) from
+    the kernel against its plain version."""
+    import torch
+
+    from lyricalignment_tpu_torch import HOP_LENGTH, kernels
+    from lyricalignment_tpu_torch.cli.inference_transcript import transcribe_records
+    from lyricalignment_tpu_torch.data.audio_io import load_audio_file
+    from lyricalignment_tpu_torch.data.records import Record
+    from lyricalignment_tpu_torch.decode import longform
+    from lyricalignment_tpu_torch.ops import mel
+    from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+
+    requests = _write_requests(tmp, TR_SECONDS, seed=4)
+    records = [Record(audio_path=p, text=t) for p, t in requests]
+    tok = WhisperTokenizer()     # no ranks: texts are the token ids themselves
+    models = {"cpu": _tiny_whisper(torch.device("cpu"), 9), "gpu": _tiny_whisper(dev, 9)}
+    cases = {"beam5+longform": _transcript_args(),
+             "greedy+fast-windows": _transcript_args(beam_size=1, fast_windows=True)}
+    song = load_audio_file(requests[-1][0], 0)["speech"]
+    out, counts = {}, {}
+    for name, model in models.items():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        texts = {case: [r["inference"] for r in transcribe_records(
+            records, model, model.cfg, tok, args)] for case, args in cases.items()}
+        kernels_records = dict(kernels.launches)
+        kernels.reset_launch_counts()
+        result = longform.transcribe_longform(model, model.cfg, song, tok, beam_size=TR_BEAM,
+                                              temperatures=(0.0,), max_new_tokens=16)
+        counts[name] = (kernels_records, dict(kernels.launches))
+        segs = [(s["start"], s["end"], s["tokens"]) for s in result["segments"]]
+        out[name] = (texts, segs)
+        log(f"[transcribe-tiny] {name}: transcribe_records x{len(cases)} + one long-form song "
+            f"in {time.perf_counter() - t0:.1f} s; {len(segs)} segments")
+    (t_cpu, s_cpu), (t_gpu, s_gpu) = out["cpu"], out["gpu"]
+    for case in cases:
+        for path, a, b in zip(TR_SECONDS, t_cpu[case], t_gpu[case]):
+            log(f"[transcribe-tiny]   {case} {path:.0f} s: equal={a == b} {b[:70]}")
+    (rec_counts, song_counts) = counts["gpu"]
+    n_windows = song_counts.get("la_bias_attention", 0) // 2
+    log(f"[transcribe-tiny] GPU launches: transcribe_records {rec_counts}; the 70 s long-form "
+        f"song {song_counts} ({n_windows} windows of 2 layers)")
+    if t_cpu != t_gpu or s_cpu != s_gpu:
+        raise AssertionError("GPU transcription tokens differ from the CPU plain path's")
+    if not s_gpu or len({a for a in t_gpu["beam5+longform"]}) < 2:
+        raise AssertionError("the transcription produced no segments or constant text")
+    for name in TRANSCRIBE_KERNELS:
+        if rec_counts.get(name, 0) <= 0 or song_counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the transcription path")
+    if song_counts["la_log10_mel"] != 1:
+        raise AssertionError("the long-form song's log-mel is not one launch")
+
+    # the whole-song log-mel: 70 s padded to whole windows plus one
+    padded_len = ((len(song) + 480000) + 480000 - 1) // 480000 * 480000
+    audio = torch.zeros((1, padded_len), device=dev)
+    audio[0, : len(song)] = torch.from_numpy(song).to(dev)
+    padded = mel.reflect_pad(audio).contiguous()
+    n_frames = padded_len // HOP_LENGTH
+    got = mel.log10_mel(padded, n_frames, 80)
+    # the plain version run in float64 (its float32 dense DFT rounds the
+    # small bins of a long input by ~2e-4 in log10); compared where the
+    # path keeps the mel, within 8 decades of the peak (log_mel's clamp)
+    ref = mel.log10_mel_plain(padded.double(), n_frames, 80)
+    floor = ref.max() - 8.0
+    err = (torch.maximum(got.double(), floor) - torch.maximum(ref, floor)).abs().max().item()
+    plain32_err = (torch.maximum(mel.log10_mel_plain(padded, n_frames, 80).double(), floor)
+                   - torch.maximum(ref, floor)).abs().max().item()
+    ms = time_ms(lambda: mel.log10_mel(padded, n_frames, 80), reps=20)
+    plain_ms = time_ms(lambda: mel.log10_mel_plain(padded, n_frames, 80), reps=20)
+    log(f"[transcribe-mel] whole-song log-mel [1, {padded.shape[1]}] -> 80 x {n_frames} "
+        f"frames: kernel vs the float64 plain version {err:.3e} within 8 decades of the "
+        f"peak (atol 1e-4; the float32 plain version {plain32_err:.3e}); kernel {ms:.4f} ms, "
+        f"float32 plain {plain_ms:.4f} ms")
+    if got.shape != (1, 80, n_frames) or not err <= 1e-4:
+        raise AssertionError("the whole-song log-mel disagrees with its plain version")
+    return {"song_windows": n_windows, "song_counts": song_counts}
+
+
+def phase_transcribe_medium(dev, card, tmp):
+    """(b): whisper-medium, full width and depth, bf16, tanh GELU, random
+    weights from a seed: 8 windows of 30 s encoded, then ``beam_search``
+    (beam 5, 224 new tokens), then ``greedy_decode`` of the same batch, with
+    the suppress ids ``transcribe_records`` passes (a synthetic ranks file)."""
+    import torch
+
+    from lyricalignment_tpu_torch import N_FRAMES, kernels
+    from lyricalignment_tpu_torch.cli.inference_transcript import suppress_token_ids
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import (
+        WHISPER_CONFIGS,
+        bf16_resident,
+        decode_step,
+        init_decode_cache,
+        prime_decode_cache,
+    )
+    from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
+    from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+
+    t0 = time.perf_counter()
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True, onepass_encoder=True)
+    with torch.device(dev):
+        align = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=64))
+    align.to(dev)
+    init_weights(align, torch.Generator(device=dev).manual_seed(0))
+    model = bf16_resident(align.whisper_model).eval()
+    tok = WhisperTokenizer(bpe_path=_write_ranks(tmp))
+    eot = tok.eot
+    suppress_ids, begin_suppress_ids = suppress_token_ids(tok)
+    prompt_ids = list(tok.sot_sequence) + [tok.no_timestamps]
+    prompt = torch.tensor([prompt_ids] * TR_WINDOWS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    audio = torch.randn(TR_WINDOWS, 480000, device=dev, generator=g) * 0.1
+    log(f"[transcribe-medium] whisper-medium bf16 built in {time.perf_counter() - t0:.1f} s; "
+        f"{len(suppress_ids)} suppressed ids, {len(begin_suppress_ids)} at the first step")
+
+    steps = [0]
+    real_step = beam_mod.decode_step
+
+    def counted_step(*a):
+        steps[0] += 1
+        return real_step(*a)
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    @torch.no_grad()
+    def decode(kind, xa, max_new):
+        """``beam_search`` or ``greedy_decode`` as ``transcribe_records``
+        calls them; the decode steps it ran."""
+        kw = dict(max_new_tokens=max_new, eot=eot, suppress_ids=suppress_ids,
+                  begin_suppress_ids=begin_suppress_ids)
+        steps[0] = 0
+        if kind == "beam":
+            tokens, _ = beam_mod.beam_search(model, wcfg, xa, prompt, beam_size=TR_BEAM, **kw)
+        else:
+            tokens = beam_mod.greedy_decode(model, wcfg, xa, prompt, **kw)
+        return tokens, steps[0]
+
+    @torch.no_grad()
+    def run(kind, max_new=TR_MAX_NEW, xa=None):
+        """encode (unless ``xa``) then decode, CUDA-event ms of each and
+        the host wall of both; then a prime alone on the same windows, whose
+        ms the decode's include (decode ms = the call's less the prime's)."""
+        marks = {name: events() for name in ("call", "prime")}
+        t0 = time.perf_counter()
+        if xa is None:
+            marks["encode"] = events()
+            marks["encode"][0].record()
+            xa = model.embed_audio(pad_or_trim(log_mel(audio, n_mels=80), N_FRAMES))
+            marks["encode"][1].record()
+        marks["call"][0].record()
+        tokens, n_steps = decode(kind, xa, max_new)
+        marks["call"][1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        marks["prime"][0].record()
+        cache = init_decode_cache(model, wcfg, xa, prompt.shape[1], max_new,
+                                  beam_size=TR_BEAM if kind == "beam" else 1)
+        prime_decode_cache(model, wcfg, prompt, cache)
+        marks["prime"][1].record()
+        torch.cuda.synchronize()
+        ms = {name: s.elapsed_time(e) for name, (s, e) in marks.items()}
+        ms["decode"] = ms["call"] - ms["prime"]
+        return xa, tokens, ms, n_steps, wall
+
+    beam_mod.decode_step = counted_step
+    try:
+        run("beam", max_new=4)                          # first-use allocations
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        xa, tokens, ms, n_steps, wall = run("beam")
+        counts = dict(kernels.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        kernels.reset_launch_counts()
+        _, g_tokens, g_ms, g_steps, _ = run("greedy", xa=xa)
+        g_counts = dict(kernels.launches)
+
+        # a few steps under the profiler: device busy a step and the idle share
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_traced = decode("beam", xa, 11)[1]
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) * 1e3
+        try:
+            trace = _device_trace(lambda: decode("beam", xa, 11))
+        except Exception as exc:  # noqa: BLE001 - CUPTI may be unavailable
+            log(f"[transcribe-trace] not measured: {type(exc).__name__}: {exc}")
+            trace = None
+    finally:
+        beam_mod.decode_step = real_step
+    n_tokens = int((tokens != eot).sum()) + TR_WINDOWS
+    dec_s = ms["call"] / 1e3
+    log(f"[transcribe-medium] beam_search, beam {TR_BEAM}, {TR_WINDOWS} windows of 30 s, "
+        f"max_new_tokens {TR_MAX_NEW}: encode {ms['encode']:.2f} ms, beam_search "
+        f"{ms['call']:.1f} ms = prime {ms['prime']:.2f} ms (timed alone) + decode "
+        f"{ms['decode']:.1f} ms in {n_steps} steps = {ms['decode'] / max(n_steps, 1):.3f} ms a "
+        f"step; {n_tokens} generated tokens (best beams' tokens + eot) = "
+        f"{n_tokens / dec_s:.1f} tokens/s over the beam_search call; {TR_WINDOWS / wall:.3f} "
+        f"windows/s ({wall:.3f} s wall, encode + beam_search); max_memory_allocated "
+        f"{peak_gb:.2f} GB on {card}; launches {counts}")
+    log(f"[transcribe-medium] greedy_decode on the same batch: {g_ms['call']:.1f} ms = prime "
+        f"{g_ms['prime']:.2f} ms + decode {g_ms['decode']:.1f} ms in {g_steps} steps = "
+        f"{g_ms['decode'] / max(g_steps, 1):.3f} ms a step; launches {g_counts}")
+    log(f"[transcribe-medium] first tokens of each best beam: "
+        f"{tokens[:, :6].tolist()}; greedy {g_tokens[:, :6].tolist()}")
+    if counts != TRANSCRIBE_KERNELS:
+        raise AssertionError(f"the beam batch launched {counts}, expected {TRANSCRIBE_KERNELS}")
+    if g_counts:
+        raise AssertionError(f"greedy decoding of encoded windows launched {g_counts}")
+    if tokens.shape != (TR_WINDOWS, TR_MAX_NEW) or g_tokens.shape != tokens.shape:
+        raise AssertionError("decode output shapes")
+    if not (0 < n_steps < TR_MAX_NEW and 0 < g_steps < TR_MAX_NEW):
+        raise AssertionError(f"decode ran {n_steps} / {g_steps} steps")
+
+    # one step's logits against the teacher-forced bf16 decoder of the same
+    # prefix: the greedy tokens fed back through the cache
+    with torch.no_grad():
+        n_fed = 5
+        cache = init_decode_cache(model, wcfg, xa, prompt.shape[1], n_fed + 1)
+        _, _, cache = prime_decode_cache(model, wcfg, prompt, cache)
+        for i in range(n_fed + 1):
+            step_logits, cache = decode_step(model, wcfg, g_tokens[:, i: i + 1], cache)
+        full = model.decoder_logits(torch.cat([prompt, g_tokens[:, : n_fed + 1]], 1), xa)
+        ref = full[:, -1].double()
+        rel = ((step_logits.double() - ref).norm() / ref.norm()).item()
+    log(f"[transcribe-medium] decode step {n_fed + 1} logits vs teacher-forced bf16 "
+        f"decoder_logits: rel_l2 {rel:.3e} (bound 3e-2)")
+    if not rel <= 3e-2:
+        raise AssertionError("the KV-cached step disagrees with the teacher-forced decoder")
+
+    if trace is None:
+        log("[transcribe-trace] not measured: the profiler recorded no device activity")
+    else:
+        busy, by_name = trace
+        n_kernels = sum(n for _, n in by_name.values())
+        log(f"[transcribe-trace] prime + {n_traced} beam steps (8 x 5 rows): device busy "
+            f"{busy:.2f} ms of {traced_wall:.2f} ms wall untraced, idle share "
+            f"{1 - busy / traced_wall:.3f}; {n_kernels} device kernels and copies; top device "
+            f"ops (ms, count):")
+        for name, (ms_, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+            log(f"[transcribe-trace]   {ms_:9.3f} {n:6d}  {name[:110]}")
+    del model, xa
+    return counts
+
+
+def phase_transcribe_cli(dev, tmp):
+    """(c): the transcript CLI on whisper-tiny (random weights, a synthetic
+    byte-level ranks file), then the evaluation CLI on its output."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+
+    model_dir = os.path.join(tmp, "tiny_model")
+    os.makedirs(model_dir)
+    with open(os.path.join(model_dir, "args.json"), "w") as f:
+        json.dump({"whisper_model": "tiny"}, f)
+    with open(os.path.join(model_dir, "model_args.json"), "w") as f:
+        json.dump({"output_dim": 403}, f)
+    model = AlignModel(AlignModelConfig(whisper=WHISPER_CONFIGS["tiny"], hidden_dim=384,
+                                        output_dim=403))
+    init_weights(model, torch.Generator().manual_seed(5))
+    torch.save(model.state_dict(), os.path.join(model_dir, "best_model.pt"))
+    ranks = _write_ranks(tmp)
+    requests = _write_requests(tmp, TR_SECONDS, seed=5)
+    data = os.path.join(tmp, "transcribe.json")
+    with open(data, "w", encoding="utf-8") as f:
+        json.dump([{"song_path": p, "lyric": t} for p, t in requests], f, ensure_ascii=False)
+    out = os.path.join(tmp, "transcript", "result.json")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmds = [
+        [sys.executable, "-m", "lyricalignment_tpu_torch.cli.inference_transcript", "-f", data,
+         "--model-dir", model_dir, "-o", out, "--whisper-bpe", ranks, "--use-groundtruth",
+         "--bf16", "--fast-gelu", "--max-new-tokens", "48", "--device", dev.type],
+        [sys.executable, "-m", "lyricalignment_tpu_torch.cli.evaluate_transcript", "-f", out],
+    ]
+    for cmd in cmds:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=600)
+        log(f"[transcribe-cli] {cmd[2]} ... exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for line in (proc.stdout + proc.stderr).strip().splitlines()[-10:]:
+            log(f"[transcribe-cli]   {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{cmd[2]} failed")
+    with open(out, encoding="utf-8") as f:
+        results = json.load(f)
+    if len(results) != len(requests) or not all("inference" in r for r in results):
+        raise AssertionError("the transcript CLI wrote no result for every record")
+    if "PER:" not in proc.stdout or "CER:" not in proc.stdout:
+        raise AssertionError("the evaluation CLI printed no CER and PER")
+
+
 def main() -> int:
     try:
         import torch
@@ -1161,6 +1530,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_train_cli(dev, tmp)
         log(f"[train] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            song = phase_transcribe_tiny(dev, tmp)
+            transcribe_counts = phase_transcribe_medium(dev, card, tmp)
+            torch.cuda.empty_cache()
+            phase_transcribe_cli(dev, tmp)
+        log(f"[transcribe] phase passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
@@ -1176,6 +1553,12 @@ def main() -> int:
         log(f"[kernel] {row['name']}: {row['launches']} launches in {TRAIN_STEPS} train steps, "
             f"{row['launches'] // TRAIN_STEPS} a step")
     rows += train_rows
+    # the transcription path: one whisper-medium batch of 8 windows at beam
+    # 5, and the tiny model's 70 s long-form song
+    for row in rows:
+        launcher = launchers.get(row["name"], f"la_{row['name']}")
+        row["transcribe_launches"] = transcribe_counts.get(launcher, 0)
+        row["longform_song_launches"] = song["song_counts"].get(launcher, 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,13 +14,18 @@ Layering:
                  binding, launch counters
     ops/       — plain-tensor functions; each kernel's wrapper sits beside
                  its plain PyTorch version
-    models/    — Whisper encoder and teacher-forced decoder, bi-GRU align
-                 head, AlignModel, weight conversion from the JAX layout
+    models/    — Whisper encoder, teacher-forced decoder and KV-cached
+                 decoding (the split cache), bi-GRU align head, AlignModel,
+                 weight conversion from the JAX layout
+    decode/    — greedy, beam and sampled decoding loops, whisper's
+                 timestamp rules, the temperature-fallback ladder and the
+                 long-form seek loop
     train/     — multitask losses, the AdamW chain, trainer, checkpoints
     data/, text/, utils/ — host-side records, WAV IO, frame labels, the
-                 training pipeline, tokenizers, pinyin table, MAE, metrics
-    cli/, api.py — alignment inference and training entry points
-                 (``device="cuda"`` by default)
+                 training pipeline, the BERT and whisper (BPE) tokenizers,
+                 pinyin table and phonemizer, eval normalisers, MAE, CER, PER
+    cli/, api.py — alignment, transcription, training and transcript
+                 evaluation entry points (``device="cuda"`` by default)
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""High-level library API for alignment (port of
-``lyricalignment_tpu/api.py:23-106``):
+"""High-level library API for alignment and transcription (port of
+``lyricalignment_tpu/api.py``):
 
     from lyricalignment_tpu_torch.api import LyricAligner
 
@@ -7,9 +7,10 @@
                                           use_ctc=True)
     segments = aligner.align("song.wav", "你好世界")   # [[on, off, char], ...]
     error = aligner.mae("song.wav", "你好世界", ground_truth_onoff)
+    text = aligner.transcribe("song.wav", whisper_bpe="multilingual.tiktoken")
 
 The model runs on the device it was loaded to (``device="cuda"`` by
-default). Transcription waits for the decoder slice of the port.
+default).
 """
 
 from __future__ import annotations
@@ -89,3 +90,55 @@ class LyricAligner:
         segments = self.align(audio_path, lyric)
         return float(mae_metric([list(ground_truth)],
                                 [[[s[0], s[1]] for s in segments]]))
+
+    def transcribe(self, audio_path: str, **kwargs) -> str:
+        """Transcribe one song; >30 s audio runs whisper's sequential seek
+        decode (``decode.longform``) unless ``fast_windows=True``."""
+        return self.transcribe_many([audio_path], **kwargs)[0]
+
+    def transcribe_many(
+        self,
+        audio_paths: Sequence[str],
+        whisper_bpe: Optional[str] = None,
+        beam_size: int = 5,
+        max_new_tokens: int = 224,
+        language: str = "zh",
+        fast_windows: bool = False,
+        length_penalty: Optional[float] = None,
+        patience: Optional[float] = None,
+        condition_on_previous_text: bool = True,
+        temperature_fallback: bool = False,
+        batch_size: Optional[int] = None,
+    ) -> List[str]:
+        """Transcribe a batch of songs with the model's whisper
+        (``cli.inference_transcript.transcribe_records``): single-window
+        audio shares fixed-size batched beam searches; results come back in
+        input order. ``batch_size`` caps the decode batch; the default is
+        the aligner's ``batch_size`` capped at 8, the transcript CLI's
+        default."""
+        from lyricalignment_tpu_torch.cli.inference_transcript import transcribe_records
+        from lyricalignment_tpu_torch.data.records import Record
+        from lyricalignment_tpu_torch.text.whisper_tokenizer import (
+            WhisperTokenizer,
+            num_languages_for_vocab,
+        )
+
+        wcfg = self.model.cfg.whisper
+        wt = WhisperTokenizer(
+            multilingual=True, language=language, task="transcribe",
+            bpe_path=whisper_bpe, num_languages=num_languages_for_vocab(wcfg.n_vocab))
+        if batch_size is None:
+            batch_size = min(self.batch_size, 8)
+        args = SimpleNamespace(
+            is_mixture=0, batch_size=max(1, batch_size), beam_size=beam_size,
+            max_new_tokens=max_new_tokens, use_groundtruth=False,
+            temperature_fallback=temperature_fallback,
+            fast_windows=fast_windows, length_penalty=length_penalty,
+            patience=patience,
+            no_condition_on_previous_text=not condition_on_previous_text,
+            seed=114514,
+        )
+        results = transcribe_records(
+            [Record(audio_path=p, text="") for p in audio_paths],
+            self.model.whisper_model, wcfg, wt, args)
+        return [r["inference"] for r in results]

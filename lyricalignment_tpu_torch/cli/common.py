@@ -75,8 +75,8 @@ def add_asset_args(parser: argparse.ArgumentParser) -> None:
         help="Use a tiny synthetic vocabulary (smoke tests only)")
     parser.add_argument(
         "--whisper-bpe", type=str, default=None,
-        help="whisper multilingual.tiktoken ranks (the text codec is not "
-             "ported yet: giving this raises)")
+        help="Path to whisper multilingual.tiktoken ranks file (enables "
+             "text encode/decode for the transcript task)")
     parser.add_argument(
         "--whisper-checkpoint", type=str, default=None,
         help="Path to an OpenAI whisper .pt checkpoint to initialise the "

@@ -1,6 +1,7 @@
-"""Whisper backbone: the audio encoder and the teacher-forced decoder.
+"""Whisper backbone: the audio encoder, the teacher-forced decoder and
+KV-cached decoding.
 
-Port of ``lyricalignment_tpu/models/whisper.py:37-123,169-175,282-534``.
+Port of ``lyricalignment_tpu/models/whisper.py:37-123,169-175,282-800``.
 Module and parameter names are the reference's ``state_dict`` names
 (``encoder.blocks.{i}.attn.query.weight``, ``decoder.token_embedding.weight``
 ...), so a reference checkpoint loads with ``load_state_dict(strict=True)``.
@@ -17,6 +18,13 @@ default, as the JAX training path runs the library flash kernel, or
 ``WhisperConfig.onepass_encoder``. The decoder's causal self-attention and
 cross-attention are plain matmuls, as JAX computes them with einsum outside
 any kernel; its unembedding runs in float32.
+
+KV-cached decoding (``init_decode_cache``, ``prime_decode_cache``,
+``decode_step``) keeps the JAX split cache: cross K/V and the prompt's K/V
+one row per sample, the generated K/V one row per beam row, preallocated at
+``[B * beam, max_new, H, Dh]`` and written at ``step`` in place. Every
+shape is fixed from step to step and the step counter lives on the device,
+so a step reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -53,6 +61,13 @@ class WhisperConfig:
     # encoder self-attention through onepass_self_attention (key bias) rather
     # than self_attention; the same kernels either way, off as in JAX
     onepass_encoder: bool = False
+    # int8 cross-attention K/V in the decode cache: not ported
+    # (init_decode_cache raises; ROADMAP.md queue 1, int8)
+    int8_cross_kv: bool = False
+
+    @property
+    def is_multilingual(self) -> bool:
+        return self.n_vocab >= 51865
 
 
 def _cfg(state: int, head: int, layer: int, **kw) -> WhisperConfig:
@@ -97,6 +112,16 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
+def _split_heads(y: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, t, d = y.shape
+    return y.view(b, t, n_head, d // n_head)
+
+
+def _causal_mask(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    mask = torch.full((n, n), torch.finfo(torch.float32).min, device=device)
+    return torch.triu(mask, diagonal=1).to(dtype)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, n_state: int, n_head: int):
         super().__init__()
@@ -106,10 +131,6 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
-    def _split(self, y: torch.Tensor) -> torch.Tensor:
-        b, t, d = y.shape
-        return y.view(b, t, self.n_head, d // self.n_head)
-
     def self_attention(self, x: torch.Tensor,
                        key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder self-attention of x [B, T, D] through the attention
@@ -117,9 +138,9 @@ class MultiHeadAttention(nn.Module):
         ``key_bias`` [1, T] is given."""
         b, t, d = x.shape
         scale = (d // self.n_head) ** -0.25
-        q = self._split(_linear(self.query, x)) * scale
-        k = self._split(_linear(self.key, x)) * scale
-        v = self._split(_linear(self.value, x)).contiguous()
+        q = _split_heads(_linear(self.query, x), self.n_head) * scale
+        k = _split_heads(_linear(self.key, x), self.n_head) * scale
+        v = _split_heads(_linear(self.value, x), self.n_head).contiguous()
         out = (self_attention(q, k, v) if key_bias is None
                else onepass_self_attention(q, k, v, key_bias))
         return _linear(self.out, out.reshape(b, t, d))
@@ -132,9 +153,9 @@ class MultiHeadAttention(nn.Module):
         b, s, d = x.shape
         scale = (d // self.n_head) ** -0.25
         src = x if xa is None else xa
-        q = self._split(_linear(self.query, x)) * scale
-        k = self._split(_linear(self.key, src))
-        v = self._split(_linear(self.value, src))
+        q = _split_heads(_linear(self.query, x), self.n_head) * scale
+        k = _split_heads(_linear(self.key, src), self.n_head)
+        v = _split_heads(_linear(self.value, src), self.n_head)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k * scale)
         if mask is not None:
             logits = logits + mask
@@ -224,8 +245,8 @@ class AudioEncoder(nn.Module):
 
 class TextDecoder(nn.Module):
     """Whisper's text decoder (reference names); :meth:`forward` is the
-    teacher-forced ``decoder_logits``. KV-cached decoding is a later
-    slice."""
+    teacher-forced ``decoder_logits``, :func:`decode_step` the KV-cached
+    step."""
 
     def __init__(self, cfg: WhisperConfig):
         super().__init__()
@@ -249,8 +270,7 @@ class TextDecoder(nn.Module):
         s = tokens.shape[1]
         x = (self.token_embedding.weight[tokens.long()].to(dtype)
              + self.positional_embedding[:s].to(dtype)[None])
-        mask = torch.full((s, s), torch.finfo(torch.float32).min, device=x.device)
-        mask = torch.triu(mask, diagonal=1).to(dtype)
+        mask = _causal_mask(s, dtype, x.device)
         for block in self.blocks:
             x = _run_block(block.decoder_forward, remat, x, xa, mask)
         x = _layer_norm(self.ln, x)
@@ -284,3 +304,177 @@ def bf16_resident(whisper: Whisper) -> Whisper:
         if p.dim() >= 2 and name not in keep:
             p.data = p.data.to(torch.bfloat16)
     return whisper
+
+
+# ---------------------------------------------------------------------------
+# KV-cached incremental decoding
+# ---------------------------------------------------------------------------
+
+def _per_sample(value, default: int, b: int, device) -> torch.Tensor:
+    """An int, a scalar or a [B] vector as an int64 [B] tensor on ``device``."""
+    value = default if value is None else value
+    return torch.as_tensor(value, dtype=torch.int64).to(device).broadcast_to((b,)).clone()
+
+
+@torch.no_grad()
+def init_decode_cache(model: Whisper, cfg: WhisperConfig, audio_features: torch.Tensor,
+                      prompt_len: int, max_new_tokens: int, beam_size: int = 1) -> Dict:
+    """Precompute cross-attention K/V and allocate the split self-attention
+    cache (``lyricalignment_tpu/models/whisper.py:init_decode_cache``):
+
+    - ``cross_k/v`` [B, T, H, Dh] and ``prompt_k/v`` [B, prompt_len, H, Dh]:
+      one row per sample, shared by the sample's beams;
+    - ``gen_k/v`` [B * beam_size, max_new_tokens, H, Dh]: one row per beam
+      row, written at ``step`` by :func:`decode_step`;
+    - ``step`` (int64 scalar tensor) and ``length`` (int64 [B], the valid
+      prompt length a sample; zero until :func:`prime_decode_cache`).
+    """
+    if cfg.int8_cross_kv:
+        raise NotImplementedError(
+            "int8 cross-attention K/V is not ported (ROADMAP.md queue 1, int8)")
+    dtype = cfg.compute_dtype
+    b = audio_features.shape[0]
+    dev = audio_features.device
+    xa = audio_features.to(dtype)
+    d_h = cfg.n_text_state // cfg.n_text_head
+    cache = {"blocks": [], "step": torch.zeros((), dtype=torch.int64, device=dev),
+             "length": torch.zeros((b,), dtype=torch.int64, device=dev)}
+    for block in model.decoder.blocks:
+        cache["blocks"].append({
+            "cross_k": _split_heads(_linear(block.cross_attn.key, xa), cfg.n_text_head),
+            "cross_v": _split_heads(_linear(block.cross_attn.value, xa), cfg.n_text_head),
+            "prompt_k": torch.zeros((b, prompt_len, cfg.n_text_head, d_h), dtype=dtype, device=dev),
+            "prompt_v": torch.zeros((b, prompt_len, cfg.n_text_head, d_h), dtype=dtype, device=dev),
+            "gen_k": torch.zeros((b * beam_size, max_new_tokens, cfg.n_text_head, d_h),
+                                 dtype=dtype, device=dev),
+            "gen_v": torch.zeros((b * beam_size, max_new_tokens, cfg.n_text_head, d_h),
+                                 dtype=dtype, device=dev),
+        })
+    return cache
+
+
+def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, ck: torch.Tensor,
+                             cv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """Cross-attention of x [B*g, S, D] (post-LN) to the precomputed K/V
+    [B, T, H, Dh], where g query rows (beams) share each audio row."""
+    bg, s, d = x.shape
+    b = ck.shape[0]
+    g = bg // b
+    scale = (d // n_head) ** -0.25
+    q = _split_heads(_linear(p.query, x), n_head).reshape(b, g, s, n_head, d // n_head)
+    logits = torch.einsum("bgshd,bthd->bgsht", q * scale, ck * scale)
+    w = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
+    out = torch.einsum("bgsht,bthd->bgshd", w, cv)
+    return _linear(p.out, out.reshape(bg, s, d))
+
+
+def _unembed(dec: TextDecoder, h: torch.Tensor) -> torch.Tensor:
+    return h.to(torch.float32) @ dec.token_embedding.weight.to(torch.float32).T
+
+
+@torch.no_grad()
+def prime_decode_cache(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor, cache: Dict,
+                       length=None, aux_index=None):
+    """Prime the cache with a whole prompt in one forward pass.
+
+    ``tokens`` int[B, P], left-aligned, one row per sample; ``length`` (an
+    int, a scalar or [B]; default P) is the valid prompt length a sample,
+    and positions past it may hold padding that stays masked. Returns
+    (logits f32[B, V] at position length - 1, logits at ``aux_index``
+    (default 0; the <|startoftranscript|> position gives the no-speech
+    probability), the cache with ``step`` 0 and ``length`` set). The
+    prompt's K/V are written into the cache in place.
+    """
+    dec = model.decoder
+    dtype = cfg.compute_dtype
+    n_head = cfg.n_text_head
+    b, p = tokens.shape
+    dev = tokens.device
+    length = _per_sample(length, p, b, dev)
+    aux_index = _per_sample(aux_index, 0, b, dev)
+
+    x = dec.token_embedding.weight[tokens.long()].to(dtype)
+    x = x + dec.positional_embedding[:p].to(dtype)[None]
+    mask = _causal_mask(p, dtype, dev)
+    scale = (cfg.n_text_state // n_head) ** -0.25
+    for block, bc in zip(dec.blocks, cache["blocks"]):
+        h = _layer_norm(block.attn_ln, x)
+        q = _split_heads(_linear(block.attn.query, h), n_head)
+        k = _split_heads(_linear(block.attn.key, h), n_head)
+        v = _split_heads(_linear(block.attn.value, h), n_head)
+        att = torch.einsum("bqhd,bkhd->bhqk", q * scale, k * scale) + mask
+        w = torch.softmax(att.to(torch.float32), -1).to(dtype)
+        attn_out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+        x = x + _linear(block.attn.out, attn_out.reshape(x.shape))
+        x = x + _grouped_cross_attention(block.cross_attn, _layer_norm(block.cross_attn_ln, x),
+                                         bc["cross_k"], bc["cross_v"], n_head)
+        x = block._mlp(x)
+        bc["prompt_k"].copy_(k)
+        bc["prompt_v"].copy_(v)
+
+    x = _layer_norm(dec.ln, x)
+    rows = torch.arange(b, device=dev)
+    last_h = x[rows, (length - 1).clamp(0, p - 1)]
+    aux_h = x[rows, aux_index.clamp(0, p - 1)]
+    cache["step"].zero_()
+    cache["length"] = length
+    return _unembed(dec, last_h), _unembed(dec, aux_h), cache
+
+
+@torch.no_grad()
+def decode_step(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor, cache: Dict):
+    """One autoregressive step: tokens int[R, 1] -> (logits f32[R, V], the
+    cache, updated in place).
+
+    ``R = B * g`` rows share ``B`` samples' prompt and cross sections (g
+    beams a sample). Row r of sample b sits at position ``length[b] +
+    step``; its self-attention reads the prompt slots ``< length[b]`` and
+    the generated slots ``<= step``. The new K/V are written at slot
+    ``step`` (the last slot once ``step`` passes the end, as JAX's
+    ``dynamic_update_slice`` clamps), and ``step`` advances on the device.
+    Callers keep ``length + step < n_text_ctx`` (``decode.beam
+    ._check_context``); past it the last positional row repeats, as in JAX.
+    """
+    dec = model.decoder
+    dtype = cfg.compute_dtype
+    n_head = cfg.n_text_head
+    step, length = cache["step"], cache["length"]
+    r, b = tokens.shape[0], length.shape[0]
+    g = r // b
+    p = cache["blocks"][0]["prompt_k"].shape[1]
+    g_max = cache["blocks"][0]["gen_k"].shape[1]
+    dev = tokens.device
+    neg = torch.finfo(torch.float32).min
+
+    pe = dec.positional_embedding.to(dtype)
+    pos = (length.repeat_interleave(g) + step).clamp(0, pe.shape[0] - 1)
+    x = dec.token_embedding.weight[tokens.long()].to(dtype) + pe[pos][:, None]
+
+    mask_p = torch.where(torch.arange(p, device=dev)[None] < length[:, None], 0.0, neg).to(dtype)
+    mask_g = torch.where(torch.arange(g_max, device=dev) <= step, 0.0, neg).to(dtype)
+    slot = step.clamp(max=g_max - 1).reshape(1)
+    scale = (cfg.n_text_state // n_head) ** -0.25
+    for block, bc in zip(dec.blocks, cache["blocks"]):
+        h = _layer_norm(block.attn_ln, x)
+        q = _split_heads(_linear(block.attn.query, h), n_head)
+        bc["gen_k"].index_copy_(1, slot, _split_heads(_linear(block.attn.key, h), n_head))
+        bc["gen_v"].index_copy_(1, slot, _split_heads(_linear(block.attn.value, h), n_head))
+
+        qs = (q * scale)[:, 0]                                              # [R, H, Dh]
+        att_p = torch.einsum("bghd,bphd->bghp", qs.reshape(b, g, n_head, -1),
+                             bc["prompt_k"] * scale) + mask_p[:, None, None, :]
+        att_g = torch.einsum("rhd,rkhd->rhk", qs, bc["gen_k"] * scale) + mask_g[None, None, :]
+        att = torch.cat([att_p.reshape(r, n_head, p), att_g], dim=-1)
+        w = torch.softmax(att.to(torch.float32), -1).to(dtype)
+        out_p = torch.einsum("bghp,bphd->bghd", w[..., :p].reshape(b, g, n_head, p),
+                             bc["prompt_v"])
+        out_g = torch.einsum("rhk,rkhd->rhd", w[..., p:], bc["gen_v"])
+        attn_out = out_p.reshape(r, n_head, -1) + out_g                     # [R, H, Dh]
+        x = x + _linear(block.attn.out, attn_out.reshape(r, 1, -1))
+        x = x + _grouped_cross_attention(block.cross_attn, _layer_norm(block.cross_attn_ln, x),
+                                         bc["cross_k"], bc["cross_v"], n_head)
+        x = block._mlp(x)
+
+    logits = _unembed(dec, _layer_norm(dec.ln, x))
+    step.add_(1)
+    return logits[:, 0], cache

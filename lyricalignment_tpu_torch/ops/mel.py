@@ -71,18 +71,19 @@ def mel_filterbank(
 
 
 @functools.lru_cache(maxsize=None)
-def _dft_bases(n_fft: int = N_FFT) -> tuple:
+def _dft_bases(n_fft: int = N_FFT, dtype=np.float32) -> tuple:
     """Real-DFT cos/sin bases with the periodic Hann window folded in.
 
-    Returns (cos_basis, sin_basis), each float32 [n_fft, 1 + n_fft // 2],
-    so that for a frame x: rfft(x * hann) = x @ cos - 1j * (x @ sin).
+    Returns (cos_basis, sin_basis), each ``dtype`` [n_fft, 1 + n_fft // 2]
+    (computed in float64, rounded once), so that for a frame x:
+    rfft(x * hann) = x @ cos - 1j * (x @ sin).
     """
     n = np.arange(n_fft)
     window = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / n_fft))  # periodic Hann
     k = np.arange(1 + n_fft // 2)
     angle = 2.0 * np.pi * np.outer(n, k) / n_fft
-    cos_b = (np.cos(angle) * window[:, None]).astype(np.float32)
-    sin_b = (np.sin(angle) * window[:, None]).astype(np.float32)
+    cos_b = (np.cos(angle) * window[:, None]).astype(dtype)
+    sin_b = (np.sin(angle) * window[:, None]).astype(dtype)
     return cos_b, sin_b
 
 
@@ -122,11 +123,12 @@ def _fft_constants(device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
-def _constants(device: torch.device, n_mels: int):
-    """(cos, sin, mel^T, band range) on ``device``: f32 [400, 201] x2,
-    f32 [201, n_mels], and i32 [n_mels, 2] holding each band's first nonzero
-    bin and last nonzero bin + 1 (0, 0 for an empty band)."""
-    cos_b, sin_b = _dft_bases(N_FFT)
+def _constants(device: torch.device, n_mels: int, dtype: torch.dtype = torch.float32):
+    """(cos, sin, mel^T, band range) on ``device``: [400, 201] x2 and
+    [201, n_mels] of ``dtype`` (float32 or float64; the filterbank is the
+    float32 one either way), and i32 [n_mels, 2] holding each band's first
+    nonzero bin and last nonzero bin + 1 (0, 0 for an empty band)."""
+    cos_b, sin_b = _dft_bases(N_FFT, np.float64 if dtype == torch.float64 else np.float32)
     fb = mel_filterbank(SAMPLE_RATE, N_FFT, n_mels)
     mel_t = np.ascontiguousarray(fb.T)
     band = np.zeros((n_mels, 2), dtype=np.int32)
@@ -134,7 +136,8 @@ def _constants(device: torch.device, n_mels: int):
         nz = np.flatnonzero(row)
         if nz.size:
             band[m] = nz[0], nz[-1] + 1
-    return tuple(torch.from_numpy(a).to(device) for a in (cos_b, sin_b, mel_t, band))
+    return (*(torch.from_numpy(a).to(device, dtype) for a in (cos_b, sin_b, mel_t)),
+            torch.from_numpy(band).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +146,10 @@ def _constants(device: torch.device, n_mels: int):
 
 def log10_mel_plain(padded: torch.Tensor, n_frames: int, n_mels: int) -> torch.Tensor:
     """Plain version of the kernel: reflect-padded audio f32[B, N + 400] ->
-    log10(max(mel power, 1e-10)) f32[B, n_mels, n_frames]."""
-    cos_b, sin_b, mel_t, _ = _constants(padded.device, n_mels)
+    log10(max(mel power, 1e-10)) f32[B, n_mels, n_frames]. A float64 input
+    is transformed in float64 throughout: the reference for long inputs,
+    whose small bins a float32 dense DFT rounds by ~2e-4 in log10."""
+    cos_b, sin_b, mel_t, _ = _constants(padded.device, n_mels, padded.dtype)
     frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]  # [B, T', 400]
     re = frames @ cos_b
     im = frames @ sin_b

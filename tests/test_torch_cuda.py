@@ -538,3 +538,124 @@ def test_viterbi_exact(dev, frames, l_max, kind):
     for x, y, z in zip(got, ref, again):
         assert torch.equal(x, y)
         assert torch.equal(x, z)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decoding and the decode loops on the card, against the CPU path
+# (which tests/test_torch_decode*.py hold to JAX and to the beam oracle)
+# ---------------------------------------------------------------------------
+
+def _tiny_whisper(n_vocab=40, n_text_ctx=32):
+    from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig
+
+    cfg = WhisperConfig(n_vocab=n_vocab, n_audio_ctx=50, n_audio_state=64, n_audio_head=1,
+                        n_audio_layer=1, n_text_ctx=n_text_ctx, n_text_state=64,
+                        n_text_head=4, n_text_layer=2)
+    torch.manual_seed(3)
+    model = Whisper(cfg).eval()
+    for p in model.parameters():
+        p.data.normal_(0.0, 0.3)
+    return model
+
+
+@pytest.mark.parametrize("g", [1, 5])
+def test_decode_step_matches_the_cpu_path(dev, g):
+    from lyricalignment_tpu_torch.models.whisper import (
+        decode_step,
+        init_decode_cache,
+        prime_decode_cache,
+    )
+
+    cpu = _tiny_whisper()
+    gpu = _tiny_whisper().to(dev)
+    gen = torch.Generator().manual_seed(g)
+    xa = torch.randn(2, 50, 64, generator=gen)
+    prompt = torch.randint(0, 40, (2, 6), generator=gen)
+    fed = torch.randint(0, 40, (5, 2 * g, 1), generator=gen)
+    out = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        cache = init_decode_cache(model, model.cfg, xa.to(d), 6, 5, beam_size=g)
+        logits, aux, cache = prime_decode_cache(model, model.cfg, prompt.to(d), cache,
+                                                torch.tensor([6, 3]), aux_index=torch.tensor([2, 0]))
+        steps = [logits, aux]
+        for tok in fed:
+            step, cache = decode_step(model, model.cfg, tok.to(d), cache)
+            steps.append(step)
+        out[name] = [s.cpu() for s in steps]
+    for a, b in zip(out["gpu"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def _hash_table(seed, vocab, eot):
+    """Integer logits indexed by a rolling hash of the history (the beam
+    oracle test's fake model): exact ties are common."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    table = rng.integers(-4, 5, size=(997, vocab)).astype(np.float32)
+    boost = rng.random(997) < 0.33
+    table[boost, eot] += 5.0
+    table[~boost, eot] -= 3.0
+    return torch.from_numpy(table)
+
+
+@pytest.mark.parametrize("seed,k,max_new,lp,patience,group", [
+    (0, 5, 12, None, None, 1), (2, 5, 12, 1.0, None, 2), (5, 5, 12, None, 2.0, 1),
+    (6, 4, 6, None, None, 4), (10, 5, 12, None, 0.6, 1), (12, 3, 14, None, 0.34, 2)])
+def test_beam_loop_ties_match_the_cpu_path(dev, monkeypatch, seed, k, max_new, lp, patience,
+                                           group):
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+
+    table = _hash_table(seed, 16, 15)
+    table[:, [1, 2]] += beam_mod.NEG_INF        # suppressed columns tie exactly
+    h0 = torch.tensor([(seed * 7 + s * 13 + 1) % 997 for s in range(3)]).repeat_interleave(k)
+    out = {}
+    for d in ("cpu", dev):
+        tab = table.to(d)
+
+        def fake_decode_step(model, cfg, tok, cache, tab=tab):
+            h = (cache["blocks"][0]["h"] * 31 + tok[:, 0]) % 997
+            return tab[h], {"blocks": [{"h": h}]}
+
+        monkeypatch.setattr(beam_mod, "decode_step", fake_decode_step)
+        h = h0.to(d)
+        toks, avg = beam_mod.beam_loop(None, None, tab[h], {"blocks": [{"h": h.clone()}]},
+                                       lambda l, g, i: l, k, max_new, 15, lp, patience,
+                                       group=group)
+        out[str(d)] = (toks.cpu(), avg.cpu())
+    assert torch.equal(out[str(dev)][0], out["cpu"][0])
+    # the scores sum log-softmax values, whose last bits differ by device
+    torch.testing.assert_close(out[str(dev)][1], out["cpu"][1], atol=1e-6, rtol=1e-6)
+
+
+def test_greedy_beam_and_sampling_match_the_cpu_path(dev):
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+
+    cpu = _tiny_whisper()
+    gpu = _tiny_whisper().to(dev)
+    xa = torch.randn(3, 50, 64, generator=torch.Generator().manual_seed(1)) * 2.0
+    prompt = torch.tensor([[31, 32]] * 3)
+    kw = dict(max_new_tokens=10, eot=30)
+    for fn, extra in ((beam_mod.greedy_decode, {}), (beam_mod.beam_search, dict(beam_size=4)),
+                      (beam_mod.beam_search, dict(beam_size=5, patience=0.6, group=3))):
+        a = fn(cpu, cpu.cfg, xa, prompt, **kw, **extra)
+        b = fn(gpu, gpu.cfg, xa.to(dev), prompt.to(dev), **kw, **extra)
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        assert torch.equal(a[0], b[0].cpu())
+        if len(a) > 1:
+            torch.testing.assert_close(b[1].cpu(), a[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 5])
+def test_timestamp_rules_match_the_cpu_path(dev, i):
+    from lyricalignment_tpu_torch.decode.timestamps import apply_timestamp_rules
+
+    gen = torch.Generator().manual_seed(i)
+    logits = torch.randn(6, 88, generator=gen) * 3
+    logits[2, 28:] += 6.0
+    tokens = torch.where(torch.rand(6, 9, generator=gen) < 0.35,
+                         28 + torch.randint(0, 60, (6, 9), generator=gen),
+                         torch.randint(0, 20, (6, 9), generator=gen))
+    a = apply_timestamp_rules(logits, tokens, i, ts_begin=28, eot=20)
+    b = apply_timestamp_rules(logits.to(dev), tokens.to(dev), i, ts_begin=28, eot=20)
+    assert torch.equal(b.cpu(), a)

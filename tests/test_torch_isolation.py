@@ -25,6 +25,14 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "lyricalignment_tpu"))
 print(len(names), bad)
 assert len(names) >= 30 and not bad, bad
+# the transcription path and its scoring are among the modules probed
+need = {"api", "cli.inference_transcript", "cli.evaluate_transcript", "decode.beam",
+        "decode.longform", "decode.timestamps", "decode.transcribe", "text.normalize",
+        "text.heteronyms", "utils.metrics"}
+missing = {n for n in need if pkg.__name__ + "." + n not in names}
+assert not missing, missing
+from lyricalignment_tpu_torch.api import LyricAligner
+assert callable(LyricAligner.transcribe_many)
 """
 
 
@@ -85,3 +93,27 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         viterbi_dp(meta(1, 4, 2), meta(1, 4), meta(1, 2, dtype=torch.int32),
                    meta(1, dtype=torch.int32), meta(1, dtype=torch.int32))
+
+
+def test_transcription_entry_points_need_cuda_by_default(tmp_path, monkeypatch):
+    """The transcript CLI and ``transcribe_many`` (through the aligner's
+    ``from_model_dir``) raise without ``--device cpu`` when CUDA is absent;
+    the evaluation CLI runs no model and needs no device."""
+    import json
+
+    from lyricalignment_tpu_torch.api import LyricAligner
+    from lyricalignment_tpu_torch.cli import evaluate_transcript, inference_transcript
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = tmp_path / "test.json"
+    data.write_text("[]")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference_transcript.main(["-f", str(data), "--model-dir", str(tmp_path),
+                                   "-o", str(tmp_path / "out.json")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LyricAligner.from_model_dir(str(tmp_path), synthetic_vocab=True).transcribe_many([])
+    result = tmp_path / "result.json"
+    result.write_text(json.dumps([{"lyric": "你好", "inference": "你们"}], ensure_ascii=False))
+    rate, ops = evaluate_transcript.compute_cer(["你好"], ["你们"])
+    evaluate_transcript.main(["-f", str(result)])
+    assert rate == 0.5 and ops["substitution"] == 1

@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from lyricalignment_tpu.models.align_model import AlignModelConfig as JaxAlignConfig
@@ -25,12 +26,14 @@ TINY_DIMS = dict(n_mels=80, n_vocab=64, n_audio_ctx=1500, n_audio_state=64,
 
 
 def jax_tiny_model(output_dim: int = 420, hidden_dim: int = 16, seed: int = 0,
-                   fc_scale: float = 1.0, **whisper_kw):
+                   fc_scale: float = 1.0, dims=None, **whisper_kw):
     """(JAX config, numpy parameter tree): ``init_align_model`` plus a
     seeded perturbation of every leaf, so zero biases and unit LayerNorm
     scales do not hide a layout error. ``fc_scale`` multiplies the head's
-    fc weights (sharper emissions, fewer near-ties in the Viterbi)."""
-    cfg = JaxAlignConfig(whisper=JaxWhisperConfig(**TINY_DIMS, **whisper_kw),
+    fc weights (sharper emissions, fewer near-ties in the Viterbi);
+    ``dims`` overrides entries of ``TINY_DIMS``."""
+    cfg = JaxAlignConfig(whisper=JaxWhisperConfig(**{**TINY_DIMS, **(dims or {})},
+                                                  **whisper_kw),
                          hidden_dim=hidden_dim, output_dim=output_dim)
     params = init_align_model(jax.random.PRNGKey(seed), cfg)
     rng = np.random.default_rng(seed)
@@ -61,7 +64,8 @@ def torch_config(jax_cfg, compute_dtype=torch.float32) -> AlignModelConfig:
 def torch_model(jax_cfg, params, compute_dtype=torch.float32) -> AlignModel:
     """The port's AlignModel with the same weights (strict load), eval mode."""
     model = AlignModel(torch_config(jax_cfg, compute_dtype))
-    model.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    model.load_state_dict(state_dict_from_jax_params(
+        params, n_audio_ctx=jax_cfg.whisper.n_audio_ctx), strict=True)
     return model.eval()
 
 
@@ -72,3 +76,16 @@ def with_whisper(jax_cfg, **kw):
 def rel_l2(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for a module that imports this fixture,
+    restored after it. The decode loops run thousands of small ops; with
+    torch's default of a thread a core, their threads spin against the
+    other test workers' on a shared CPU (six workers of the longform tests:
+    1185 s with 8 threads each, 75 s with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
