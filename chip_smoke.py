@@ -61,6 +61,24 @@ NVIDIA GPU (written for the H100, sm_90a):
        ``best_model`` with ``cli.common.load_model_dir`` and aligns with
        ``LyricAligner.align_many``.
 
+7. phase "transcribe": a tiny float32 model's ``transcribe_records``
+   (beam 5 with long-form, greedy with ``--fast-windows``) and a 70 s
+   long-form song against the CPU plain path token for token; whisper-medium
+   ``beam_search`` and ``greedy_decode`` of 8 windows (encode, prime and
+   per-step ms, launches); the transcript and evaluation CLIs.
+
+8. phase "serve", checkpoint interop and the JSONL service at whisper-medium
+   (bf16, random weights from a seed): the backbone goes through
+   ``la-convert export-hf`` then ``la-convert import-hf`` (seconds and bytes
+   printed) and must come back bit for bit; ``cli.serve.serve`` then answers
+   a JSONL stream with ``--max-batch 8``: 8 alignment requests of 8-45 s
+   (three of them 44.1 kHz stereo WAVs, read by the native loader), 3
+   transcription requests, a malformed WAV, a bad JSON line and ids. No
+   well-formed request may get an error, only the batch that holds the
+   malformed WAV may fall back to one request at a time, every alignment
+   must equal ``align_many``'s on the same requests, and the four serving
+   kernels must launch.
+
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero (and prints no result) without CUDA or without the repository
@@ -73,6 +91,7 @@ import dataclasses
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -429,7 +448,9 @@ def _vocab_and_table():
     return vocab, table
 
 
-def _write_requests(dirname, lengths, seed):
+def _write_requests(dirname, lengths, seed, stereo=()):
+    """WAV requests of ``lengths`` seconds, 16 kHz mono, or 44.1 kHz stereo
+    for the indices in ``stereo``; each with a lyric of 10-48 characters."""
     import numpy as np
 
     from lyricalignment_tpu_torch.data.audio_io import write_wav
@@ -437,11 +458,14 @@ def _write_requests(dirname, lengths, seed):
     rng = np.random.default_rng(seed)
     requests = []
     for i, sec in enumerate(lengths):
-        t = np.arange(int(sec * 16000)) / 16000.0
+        sr = 44100 if i in stereo else 16000
+        t = np.arange(int(sec * sr)) / sr
         env = 0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * t)
         audio = 0.2 * env * np.sin(2 * np.pi * (150 + 30 * i) * t) + 0.03 * rng.standard_normal(t.shape)
+        if i in stereo:
+            audio = np.stack([audio, 0.8 * audio + 0.03 * rng.standard_normal(t.shape)])
         path = os.path.join(dirname, f"req{i}.wav")
-        write_wav(path, audio.astype(np.float32))
+        write_wav(path, audio.astype(np.float32), sr)
         n_chars = int(rng.integers(10, 49))
         requests.append((path, "".join(rng.choice(list(POOL), n_chars))))
     return requests
@@ -1480,6 +1504,210 @@ def phase_transcribe_cli(dev, tmp):
         raise AssertionError("the evaluation CLI printed no CER and PER")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: checkpoint interop and the JSONL service at whisper-medium
+# ---------------------------------------------------------------------------
+
+SERVE_ALIGN = (8.0, 11.5, 14.2, 17.3, 21.0, 24.6, 29.4, 45.0)
+SERVE_STEREO = (1, 4, 7)             # 44.1 kHz stereo: the native resampler runs
+SERVE_TRANSCRIBE = (9.0, 17.5, 26.0)
+SERVE_MAX_NEW = 8
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _write_vocab(path, vocab):
+    """``vocab`` (token -> id, ids 0..n-1) as a bert vocab.txt, a token a
+    line in id order, for ``--bert-vocab``."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(tok for tok, _ in sorted(vocab.items(), key=lambda kv: kv[1])))
+
+
+def phase_serve(dev, card, tmp):
+    """Phase 8 (see the module docstring). Returns the serve run's launch
+    counts by kernel."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.cli import convert_checkpoint, serve
+    from lyricalignment_tpu_torch.data import native_loader
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+    from lyricalignment_tpu_torch.train.checkpoints import export_reference_pt, save_json
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    if not native_loader.available():
+        raise AssertionError("the native WAV loader did not build (g++)")
+
+    # a whisper-medium model dir with random weights from a seed
+    t0 = time.perf_counter()
+    src_dir, hf_dir, model_dir = (os.path.join(tmp, d) for d in ("source", "hf", "model"))
+    os.makedirs(src_dir)
+    save_json(os.path.join(src_dir, "args.json"), {"whisper_model": "medium", "use_ctc_loss": True})
+    save_json(os.path.join(src_dir, "model_args.json"), {"output_dim": C_CTC})
+    with torch.device(dev):
+        model = AlignModel(AlignModelConfig(whisper=WHISPER_CONFIGS["medium"], hidden_dim=384,
+                                            output_dim=C_CTC))
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    source = {k: v.cpu() for k, v in model.whisper_model.state_dict().items()}
+    export_reference_pt(model, os.path.join(src_dir, "best_model.pt"))
+    del model
+    torch.cuda.empty_cache()
+    src_bytes = _dir_bytes(src_dir)
+    t_src = time.perf_counter() - t0
+
+    # la-convert export-hf, then import-hf into the model dir that is served
+    t0 = time.perf_counter()
+    convert_checkpoint.main(["export-hf", "--model-dir", src_dir, "--output-dir", hf_dir])
+    t_export = time.perf_counter() - t0
+    hf_bytes = _dir_bytes(hf_dir)
+    shutil.rmtree(src_dir)
+    t0 = time.perf_counter()
+    convert_checkpoint.main(["import-hf", "--hf-dir", hf_dir, "--output-dir", model_dir,
+                             "--use-ctc-loss", "--seed", "1"])
+    t_import = time.perf_counter() - t0
+    model_bytes = _dir_bytes(model_dir)
+    shutil.rmtree(hf_dir)
+    with open(os.path.join(model_dir, "args.json")) as f:
+        if json.load(f)["whisper_model"] != "medium":
+            raise AssertionError("import-hf did not recognise whisper-medium")
+    imported = torch.load(os.path.join(model_dir, "best_model.pt"), map_location="cpu",
+                          weights_only=True)
+    differ = [k for k, v in source.items() if not torch.equal(imported[f"whisper_model.{k}"], v)]
+    del imported
+    log(f"[serve] whisper-medium model dir written in {t_src:.1f} s ({src_bytes / 1e9:.3f} GB); "
+        f"la-convert export-hf {t_export:.1f} s -> {hf_bytes / 1e9:.3f} GB, import-hf "
+        f"{t_import:.1f} s -> {model_bytes / 1e9:.3f} GB; imported backbone bit-equal to the "
+        f"source: {not differ} ({len(source) - len(differ)} of {len(source)} tensors)")
+    if differ:
+        raise AssertionError(f"import-hf changed the backbone: {differ[:4]}")
+
+    # the service, loaded as serve.main loads it
+    vocab, _ = _vocab_and_table()
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    _write_vocab(vocab_path, vocab)
+    args = serve.parse_args([
+        "--model-dir", model_dir, "--use-ctc-loss", "--bert-vocab", vocab_path, "--bf16",
+        "--max-batch", "8", "--batch-window-ms", "2000", "--max-new-tokens",
+        str(SERVE_MAX_NEW), "--device", dev.type])
+    t0 = time.perf_counter()
+    aligner = serve.load_aligner(args)
+    t_load = time.perf_counter() - t0
+    resident = aligner.model.whisper_model.state_dict()
+    if not all(torch.equal(v.cpu(), source[k].to(v.dtype)) for k, v in resident.items()):
+        raise AssertionError("the served backbone is not the source's, cast to its dtype")
+    del source, resident
+
+    wav_dir = os.path.join(tmp, "wavs")
+    os.makedirs(wav_dir)
+    align = _write_requests(wav_dir, SERVE_ALIGN, seed=8, stereo=SERVE_STEREO)
+    trans_dir = os.path.join(tmp, "transcribe_wavs")
+    os.makedirs(trans_dir)
+    trans = [p for p, _ in _write_requests(trans_dir, SERVE_TRANSCRIBE, seed=9)]
+    bad_wav = os.path.join(tmp, "bad_bits.wav")
+    fmt = struct.pack("<HHIIHH", 1, 1, 16000, 32000, 2, 4)  # PCM of 4 bits: no such width
+    body = (b"fmt " + struct.pack("<I", len(fmt)) + fmt
+            + b"data" + struct.pack("<I", 32) + bytes(32))
+    with open(bad_wav, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WAVE" + body)
+    # first batch: the 8 alignments; second: 3 transcriptions, the bad WAV,
+    # a bad line and two more alignments
+    reqs = [{"song_path": p, "lyric": t, "id": f"a{i}"} for i, (p, t) in enumerate(align)]
+    reqs += [{"song_path": p, "task": "transcribe", "id": f"t{i}"} for i, p in enumerate(trans)]
+    extra = [(align[0][0], align[2][1]), (align[5][0], align[3][1])]
+    reqs += [{"song_path": bad_wav, "lyric": align[1][1], "id": "bad-wav"}, "{not json",
+             {"song_path": extra[0][0], "lyric": extra[0][1], "id": "a8"},
+             {"song_path": extra[1][0], "lyric": extra[1][1], "id": "a9"}]
+    stream = "".join((json.dumps(r, ensure_ascii=False) if isinstance(r, dict) else r) + "\n"
+                     for r in reqs)
+
+    calls = []  # (requests, raised) of every align_many the service makes
+    real_align_many = aligner.align_many
+
+    def spy(requests):
+        try:
+            out = real_align_many(requests)
+        except Exception:
+            calls.append((list(requests), True))
+            raise
+        calls.append((list(requests), False))
+        return out
+
+    aligner.align_many = spy
+    stdout, stderr = io.StringIO(), io.StringIO()
+    aligner.align_many(align[:1])  # first-use allocations outside the window
+    calls.clear()
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(stderr):
+        serve.serve(aligner, args, stdin=io.StringIO(stream), stdout=stdout)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    aligner.align_many = real_align_many
+
+    out = [json.loads(line) for line in stdout.getvalue().splitlines()]
+    by_id = {r.get("id"): r for r in out}
+    errors = {r.get("id"): r["error"] for r in out if "error" in r}
+    answered = [r for r in out if "error" not in r]
+    seconds = (sum(SERVE_ALIGN) + sum(SERVE_TRANSCRIBE) + SERVE_ALIGN[0] + SERVE_ALIGN[5])
+    log(f"[serve] serve() answered {len(answered)} of {len(out)} lines ({seconds:.1f} s of audio "
+        f"in the well-formed requests) in {wall:.3f} s on {card} (model dir loaded in "
+        f"{t_load:.1f} s); align_many calls (requests, raised): "
+        f"{[(len(r), e) for r, e in calls]}; launches {counts}")
+    log(f"[serve] errors {errors}; service stderr: {stderr.getvalue().strip()[:300]!r}")
+    for r in out:
+        if "inference" in r:
+            log(f"[serve]   {r['id']}: {r['inference'][:60]!r}")
+
+    if len(out) != len(reqs) or set(errors) != {"bad-wav", None}:
+        raise AssertionError(f"a well-formed request got an error, or a bad one did not: {errors}")
+    # the first call is the fused batch of 8; a call raises iff it holds
+    # the bad WAV (its batch of 3, then its retry alone)
+    if calls[0] != (align, False) or sum(raised for _, raised in calls) != 2 or any(
+            raised != any(p == bad_wav for p, _ in r) for r, raised in calls):
+        raise AssertionError(f"the batch with no bad request fell back, or the one with it "
+                             f"did not: {[(len(r), e) for r, e in calls]}")
+    if stderr.getvalue().count("batched alignment failed") != 1 or \
+            "batched transcription failed" in stderr.getvalue():
+        raise AssertionError("the service retried a batch with no bad request")
+    # the served alignments against align_many on the same requests
+    want = real_align_many(align)
+    for i in range(len(align)):
+        if by_id[f"a{i}"]["alignment"] != want[i]:
+            raise AssertionError(f"served alignment a{i} differs from align_many's")
+    for i, (p, t) in zip((8, 9), extra):
+        if by_id[f"a{i}"]["alignment"] != real_align_many([(p, t)])[0]:
+            raise AssertionError(f"served alignment a{i} differs from align_many's")
+    _check_segments(want, align, SERVE_ALIGN)
+    texts = aligner.transcribe_many(trans, beam_size=args.beam_size, max_new_tokens=SERVE_MAX_NEW,
+                                    batch_size=min(8, args.max_batch))
+    if [by_id[f"t{i}"]["inference"] for i in range(len(trans))] != texts:
+        raise AssertionError("served transcriptions differ from transcribe_many's")
+    for name in SERVING_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the service")
+    del aligner
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1538,6 +1766,11 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_transcribe_cli(dev, tmp)
         log(f"[transcribe] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_counts = phase_serve(dev, card, tmp)
+        log(f"[serve] phase passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
@@ -1555,10 +1788,12 @@ def main() -> int:
     rows += train_rows
     # the transcription path: one whisper-medium batch of 8 windows at beam
     # 5, and the tiny model's 70 s long-form song
+    # and the JSONL service's run (phase "serve")
     for row in rows:
         launcher = launchers.get(row["name"], f"la_{row['name']}")
         row["transcribe_launches"] = transcribe_counts.get(launcher, 0)
         row["longform_song_launches"] = song["song_counts"].get(launcher, 0)
+        row["serve_launches"] = serve_counts.get(launcher, 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

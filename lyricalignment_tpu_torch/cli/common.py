@@ -23,9 +23,13 @@ from lyricalignment_tpu_torch.models.align_model import (
     AlignModelConfig,
     init_weights,
 )
-from lyricalignment_tpu_torch.models.convert import load_reference_checkpoint
+from lyricalignment_tpu_torch.models.convert import (
+    load_openai_checkpoint,
+    load_reference_checkpoint,
+)
 from lyricalignment_tpu_torch.models.whisper import (
     WHISPER_CONFIGS,
+    WHISPER_DIMS,
     WhisperConfig,
     bf16_resident,
 )
@@ -35,12 +39,6 @@ from lyricalignment_tpu_torch.text.bert_tokenizer import (
 )
 from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
 from lyricalignment_tpu_torch.train.checkpoints import load_json
-
-# the ten architecture ints of WhisperConfig (OpenAI's ModelDimensions)
-WHISPER_DIMS = ("n_mels", "n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head",
-                "n_audio_layer", "n_text_ctx", "n_text_state", "n_text_head",
-                "n_text_layer")
-
 
 def resolve_device(device: str = "cuda") -> torch.device:
     """The device an entry point runs on; CUDA unless the caller asks for
@@ -125,19 +123,6 @@ def build_model_config(
                             train_transcript=train_transcript)
 
 
-def load_openai_checkpoint(path: str, cfg: WhisperConfig) -> Dict[str, torch.Tensor]:
-    """The whisper state dict of an OpenAI ``.pt`` (``{"dims",
-    "model_state_dict"}``), whose key names the port's ``Whisper`` uses;
-    raises unless its dims are ``cfg``'s."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    dims = ckpt["dims"] if isinstance(ckpt["dims"], dict) else vars(ckpt["dims"])
-    want = {k: getattr(cfg, k) for k in WHISPER_DIMS}
-    got = {k: int(dims[k]) for k in WHISPER_DIMS}
-    if got != want:
-        raise SystemExit(f"--whisper-checkpoint dims {got} do not match the model's {want}")
-    return ckpt["model_state_dict"]
-
-
 def init_model(args, mcfg: AlignModelConfig, seed: int, device: torch.device) -> AlignModel:
     """Random init from ``seed`` (``init_weights``' distributions, drawn on
     ``device``), the backbone optionally overwritten from
@@ -147,7 +132,11 @@ def init_model(args, mcfg: AlignModelConfig, seed: int, device: torch.device) ->
     model.to(device)  # the sinusoid buffer is made from numpy, on the CPU
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     if getattr(args, "whisper_checkpoint", None):
-        sd = load_openai_checkpoint(args.whisper_checkpoint, mcfg.whisper)
+        ckpt_cfg, sd = load_openai_checkpoint(args.whisper_checkpoint)
+        want = {k: getattr(mcfg.whisper, k) for k in WHISPER_DIMS}
+        got = {k: getattr(ckpt_cfg, k) for k in WHISPER_DIMS}
+        if got != want:
+            raise SystemExit(f"--whisper-checkpoint dims {got} do not match the model's {want}")
         model.whisper_model.load_state_dict(sd, strict=True)
     return model
 

@@ -33,7 +33,6 @@ import torch
 
 from lyricalignment_tpu_torch import N_FRAMES, N_SAMPLES
 from lyricalignment_tpu_torch.cli.common import (
-    WHISPER_DIMS,
     add_asset_args,
     load_model_dir,
     resolve_device,
@@ -42,6 +41,7 @@ from lyricalignment_tpu_torch.cli.common import (
 from lyricalignment_tpu_torch.data.audio_io import load_audio_file
 from lyricalignment_tpu_torch.data.records import read_data
 from lyricalignment_tpu_torch.decode.beam import beam_search, greedy_decode
+from lyricalignment_tpu_torch.models.convert import load_openai_checkpoint
 from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig, bf16_resident
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
 from lyricalignment_tpu_torch.text.whisper_tokenizer import (
@@ -225,13 +225,11 @@ def load_pretrained_whisper(path: str, bf16: bool, device: str):
     ``.pt`` checkpoint, its dims giving the config (``bf16``: bfloat16
     compute with bf16-resident weights)."""
     dev = resolve_device(device)
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    dims = ckpt["dims"] if isinstance(ckpt["dims"], dict) else vars(ckpt["dims"])
-    wcfg = WhisperConfig(**{k: int(dims[k]) for k in WHISPER_DIMS})
+    wcfg, sd = load_openai_checkpoint(path)
     if bf16:
         wcfg = dataclasses.replace(wcfg, compute_dtype=torch.bfloat16)
     whisper = Whisper(wcfg)
-    whisper.load_state_dict(ckpt["model_state_dict"], strict=True)
+    whisper.load_state_dict(sd, strict=True)
     if bf16:
         bf16_resident(whisper)
     return wcfg, whisper.to(dev).eval()

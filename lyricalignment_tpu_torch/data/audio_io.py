@@ -1,9 +1,10 @@
 """Host-side audio loading: WAV decode + resample to 16 kHz float32.
 
-The port's own copy of the pure-Python path of
-``lyricalignment_tpu/data/audio_io.py`` (the native C++ loader is not ported
-yet): stdlib ``wave`` + numpy decoding + scipy polyphase resampling. The
-``audio_type`` convention of the reference (`utils/audio.py:3-20`):
+The port's own copy of ``lyricalignment_tpu/data/audio_io.py``:
+:func:`load_audio_file` goes through the native C++ loader
+(``data/native_loader.py``) when ``g++`` built it, else through the Python
+path here (stdlib ``wave`` + numpy decoding + scipy polyphase resampling).
+The ``audio_type`` convention of the reference (`utils/audio.py:3-20`):
     0 = mono (channel-averaged if the file is multi-channel)
     1 = stereo mixture -> average of the two channels
     2 = stereo where channel 1 is the vocal stem -> take channel index 1
@@ -17,6 +18,8 @@ from typing import Dict
 
 import numpy as np
 from scipy.signal import resample_poly
+
+from lyricalignment_tpu_torch.data import native_loader
 
 TARGET_SR = 16_000
 
@@ -65,7 +68,15 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int = TARGET_SR) -> np.
 
 
 def load_audio_file(path: str, audio_type: int = 0) -> Dict[str, np.ndarray]:
-    """Load + resample a WAV file; returns {'speech': f32[T], 'sampling_rate'}."""
+    """Load + resample a WAV file; returns {'speech': f32[T], 'sampling_rate'}.
+    Dispatches to the native loader when it is available."""
+    if native_loader.available():
+        return native_loader.load_audio_file_native(path, audio_type)
+    return load_audio_file_python(path, audio_type)
+
+
+def load_audio_file_python(path: str, audio_type: int = 0) -> Dict[str, np.ndarray]:
+    """The Python path of :func:`load_audio_file`."""
     data, sr = read_wav(path)
     data = resample(data, sr)
 

@@ -58,20 +58,27 @@ class AlignModel(nn.Module):
 
 
 @torch.no_grad()
+def init_head_weights(head: AlignHead, generator: torch.Generator) -> AlignHead:
+    """The head's part of :func:`init_weights`: GRU U(+-1/sqrt(H)), fc
+    weight and bias U(+-1/sqrt(fan_in)), drawn from ``generator`` in
+    parameter order."""
+    for name, p in head.named_parameters():
+        fan = head.rnn.hidden_size if name.startswith("rnn.") else head.fc.in_features
+        p.uniform_(-1.0 / math.sqrt(fan), 1.0 / math.sqrt(fan), generator=generator)
+    return head
+
+
+@torch.no_grad()
 def init_weights(model: AlignModel, generator: torch.Generator) -> AlignModel:
     """Random init with the JAX package's distributions, drawn from
     ``generator`` (which must live on the parameters' device): linear and
-    conv weights U(+-1/sqrt(fan_in)) with zero biases (the fc bias is
-    uniform too), LayerNorm ones/zeros, GRU U(+-1/sqrt(H)), token embedding
-    N(0, 0.02), decoder positions zero."""
+    conv weights U(+-1/sqrt(fan_in)) with zero biases, LayerNorm ones/zeros,
+    token embedding N(0, 0.02), decoder positions zero; then the head
+    (:func:`init_head_weights`)."""
     uniform = lambda p, s: p.uniform_(-s, s, generator=generator)
-    for name, p in model.named_parameters():
+    for name, p in model.whisper_model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("align_rnn.rnn."):
-            uniform(p, 1.0 / math.sqrt(model.cfg.hidden_dim))
-        elif name == "align_rnn.fc.weight" or name == "align_rnn.fc.bias":
-            uniform(p, 1.0 / math.sqrt(model.align_rnn.fc.in_features))
-        elif name.endswith("token_embedding.weight"):
+        if name.endswith("token_embedding.weight"):
             p.normal_(0.0, 0.02, generator=generator)
         elif name.endswith("decoder.positional_embedding"):
             p.zero_()
@@ -82,6 +89,7 @@ def init_weights(model: AlignModel, generator: torch.Generator) -> AlignModel:
         else:  # linear [out, in] or conv [out, in, k]
             fan_in = p.shape[1] * (p.shape[2] if p.dim() == 3 else 1)
             uniform(p, 1.0 / math.sqrt(fan_in))
+    init_head_weights(model.align_rnn, generator)
     return model
 
 

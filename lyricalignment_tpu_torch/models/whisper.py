@@ -70,6 +70,12 @@ class WhisperConfig:
         return self.n_vocab >= 51865
 
 
+# the ten architecture ints of WhisperConfig (OpenAI's ModelDimensions)
+WHISPER_DIMS = ("n_mels", "n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head",
+                "n_audio_layer", "n_text_ctx", "n_text_state", "n_text_head",
+                "n_text_layer")
+
+
 def _cfg(state: int, head: int, layer: int, **kw) -> WhisperConfig:
     return WhisperConfig(
         n_audio_state=state, n_audio_head=head, n_audio_layer=layer,

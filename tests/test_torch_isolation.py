@@ -28,7 +28,8 @@ assert len(names) >= 30 and not bad, bad
 # the transcription path and its scoring are among the modules probed
 need = {"api", "cli.inference_transcript", "cli.evaluate_transcript", "decode.beam",
         "decode.longform", "decode.timestamps", "decode.transcribe", "text.normalize",
-        "text.heteronyms", "utils.metrics"}
+        "text.heteronyms", "utils.metrics", "models.convert", "cli.convert_checkpoint",
+        "cli.serve", "cli.inference_alignment_nogt", "cli.postprocess", "data.native_loader"}
 missing = {n for n in need if pkg.__name__ + "." + n not in names}
 assert not missing, missing
 from lyricalignment_tpu_torch.api import LyricAligner
@@ -117,3 +118,24 @@ def test_transcription_entry_points_need_cuda_by_default(tmp_path, monkeypatch):
     rate, ops = evaluate_transcript.compute_cer(["你好"], ["你们"])
     evaluate_transcript.main(["-f", str(result)])
     assert rate == 0.5 and ops["substitution"] == 1
+
+
+def test_serving_entry_points_need_cuda_by_default(tmp_path, monkeypatch):
+    """``serve`` and the nogt CLI raise without ``--device cpu`` when CUDA is
+    absent; ``la-convert`` and postprocess run on the host and need no
+    device."""
+    from lyricalignment_tpu_torch.cli import inference_alignment_nogt, postprocess, serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = tmp_path / "test.json"
+    data.write_text("[]")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--model-dir", str(tmp_path), "--synthetic-vocab"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference_alignment_nogt.main(["-f", str(data), "--model-dir", str(tmp_path),
+                                       "--synthetic-vocab"])
+    assert serve.parse_args(["--model-dir", "m"]).device == "cuda"
+    result = tmp_path / "result.json"
+    result.write_text('[{"inference": "A 愛"}]')
+    postprocess.main(["-f", str(result)])
+    assert "爱" in result.read_text(encoding="utf-8")

@@ -84,9 +84,10 @@ def records(tmp_path, rng):
 
 @pytest.mark.parametrize("use_ctc", [False, True])
 def test_batches_match_jax(records, use_ctc, monkeypatch):
-    # the JAX package's Python WAV path, which the port copies (its native
-    # C++ loader resamples with other float32 rounding)
+    # both packages' Python WAV path (their native C++ loaders, bit-equal to
+    # each other, resample with other float32 rounding)
     monkeypatch.setattr("lyricalignment_tpu.data.native_loader.available", lambda: False)
+    monkeypatch.setattr("lyricalignment_tpu_torch.data.native_loader.available", lambda: False)
     vocab = make_synthetic_vocab(chars=CHARS, size=300)
     kw = dict(batch_size=2, use_ctc=use_ctc, max_label_len=8, max_decoder_len=12)
     ours = MultitaskLoader(read_many(records), MultitaskExampleBuilder(

@@ -14,6 +14,7 @@ import torch
 
 from lyricalignment_tpu.models.align_model import AlignModelConfig as JaxAlignConfig
 from lyricalignment_tpu.models.align_model import init_align_model
+from lyricalignment_tpu.models.convert import align_params_to_state_dict
 from lyricalignment_tpu.models.whisper import WhisperConfig as JaxWhisperConfig
 from lyricalignment_tpu_torch.models.align_model import AlignModel, AlignModelConfig
 from lyricalignment_tpu_torch.models.convert import state_dict_from_jax_params
@@ -42,6 +43,16 @@ def jax_tiny_model(output_dim: int = 420, hidden_dim: int = 16, seed: int = 0,
         params)
     params["align_head"]["fc"]["w"] = params["align_head"]["fc"]["w"] * fc_scale
     return cfg, params
+
+
+def jax_whisper_sd(wp, n_audio_ctx: int = 1500):
+    """A JAX whisper parameter tree in the port's names (numpy), through the
+    JAX package's own reference export."""
+    head = {"gru": {"layers": []}, "fc": {"w": np.zeros((1, 1)), "b": np.zeros(1)}}
+    sd = align_params_to_state_dict({"whisper": as_jax(wp), "align_head": head},
+                                    n_audio_ctx=n_audio_ctx)
+    return {k[len("whisper_model."):]: v for k, v in sd.items()
+            if k.startswith("whisper_model.")}
 
 
 def as_jax(params):
