@@ -37,6 +37,13 @@ NVIDIA GPU (written for the H100, sm_90a):
    device time by kernel and the device's idle share, when the profiler
    records device activity.
 
+   Phase "int8", on the same weights: the alignment batch with the int8
+   encoder (``int8_resident`` weights, ``torch._int_mm``) beside bf16
+   (audio-s/s of each, encoder output rel-L2, onsets/offsets within one
+   frame), a trace in which the int8 GEMMs must show, then ``beam_search``
+   of 8 windows with int8 cross K/V beside bf16 (ms a step, the first
+   logits' rel-L2, the cross K/V cache bytes).
+
 6. phase "train", the multitask training path:
    (a) holds the training attention kernels (forward with the row
        log-sum-exp, dK/dV, dQ) against autograd through the plain einsum at
@@ -46,6 +53,16 @@ NVIDIA GPU (written for the H100, sm_90a):
        version and ``scaled_dot_product_attention`` forward and backward;
        each kernel's rate, share of the bound and ptxas line as in 2., and
        its rate at B = 16 beside B = 2 (the grid's tail);
+   (a') holds the row LSE (``la_row_lse``, atol 2e-5 against float64) and
+       its backward pair (``la_row_lse_bwd_dh``, ``la_row_lse_bwd_dw``)
+       against the plain chunked recompute in float64 at the training shape
+       (3000 rows, feat 768, the fc slices w[1:21128] and w[0:21128];
+       rel-L2 1e-5, two runs bit-equal), timed beside the chunked cuBLAS
+       route, the plain version and the bound;
+   (a'') holds the reduced CTC kernels against the plain recursions at
+       B = 2, T = 1500, N = 48 and with an all-padding target and one that
+       cannot fit, timed beside the chain floor (a one-warp probe) and the
+       forward beside ``F.ctc_loss`` on the same reduced emissions;
    (b) runs one ``make_train_step`` of a tiny float32 model on the GPU and
        on the CPU (plain versions) and compares losses (rtol 1e-4) and
        updates (at most 1 in 1000 entries off by more than 2e-2 lr);
@@ -56,9 +73,18 @@ NVIDIA GPU (written for the H100, sm_90a):
        timed steps with launch counts reset just before and checked just
        after (mel 8, attention forward 192, dK/dV 192, dQ 192 a step), step
        ms, trained audio-s/s, peak memory and one traced step;
+   (e) repeats (c) with ``fused_losses``: on (c)'s weights and first
+       micro-batch the row LSE against float64 (atol 2e-5), the fused
+       losses and gradients against the unfused ones,
+       then one warm-up and 2 timed steps (step ms, peak memory beside
+       (c)'s, launches: the row LSE and each backward kernel 16 a step, each
+       CTC kernel 8);
    (d) runs ``python -m lyricalignment_tpu_torch.cli.train_multitask`` for 2
-       steps of whisper-tiny on synthetic WAVs, loads the written
-       ``best_model`` with ``cli.common.load_model_dir`` and aligns with
+       steps of whisper-tiny on synthetic WAVs with ``--fused-losses
+       --profile-at-step 2`` (the profile must hold the ``data`` and
+       ``train_step`` spans; their host ms and the step's device-busy ms are
+       printed), loads the written ``best_model`` with
+       ``cli.common.load_model_dir`` and aligns with
        ``LyricAligner.align_many``.
 
 7. phase "transcribe": a tiny float32 model's ``transcribe_records``
@@ -896,6 +922,312 @@ def phase_train_kernels(dev):
     return rows
 
 
+# One warp timing `steps` dependent steps of the reduced CTC's recursion as
+# it stands between states: the two neighbours from the lanes below, their
+# max, three exponentials, a log and the adds (_lse3 plus the emission).
+# out[0] = clock64 cycles for all of them (out[1] keeps the result alive).
+_CTC_STEP_PROBE = r"""
+__global__ void ctc_step_cycles_kernel(int steps, float em, long long* out) {
+  float a = -static_cast<float>(threadIdx.x);
+  const long long t0 = clock64();
+  for (int t = 0; t < steps; ++t) {
+    const float a1 = __shfl_up_sync(0xffffffffu, a, 1);
+    const float a2 = __shfl_up_sync(0xffffffffu, a, 2);
+    const float m = fmaxf(fmaxf(a, a1), a2);
+    a = em + (m + logf(expf(a - m) + expf(a1 - m) + expf(a2 - m)));
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = __float_as_int(a);
+  }
+}
+
+extern "C" int ctc_step_cycles(int steps, long long* out) {
+  ctc_step_cycles_kernel<<<1, 32>>>(steps, -0.5f, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def ctc_step_cycles(steps: int = 20000) -> float:
+    """SM cycles of one dependent step of the reduced CTC's chain, from
+    ``_CTC_STEP_PROBE`` built with ``ctc.cu``'s flags beside the library."""
+    import ctypes
+
+    import torch
+
+    from lyricalignment_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        src, so = os.path.join(tmp, "ctc_probe.cu"), os.path.join(tmp, "ctc_probe.so")
+        with open(src, "w") as f:
+            f.write(_CTC_STEP_PROBE)
+        subprocess.run([build._nvcc()] + build.ARCH_FLAGS + build.COMMON_FLAGS
+                       + ["-shared", "-o", so, src], check=True, capture_output=True,
+                       timeout=300)
+        lib = ctypes.CDLL(so)
+        out = torch.zeros(2, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        if lib.ctc_step_cycles(steps, ctypes.c_void_p(out.data_ptr())) != 0:
+            raise AssertionError("the CTC step probe did not launch")
+        torch.cuda.synchronize()
+        return out[0].item() / steps
+
+
+ROWS_FUSED = TRAIN_B * TRAIN_T   # rows of a micro-batch's hidden: 2 x 1500
+N_CTC, N_CTC_VALID = 48, 24      # the CTC label positions of bench_train's batch
+
+
+def phase_train_lse_bwd(dev):
+    """(a'): the row LSE and its backward pair at the training shape (3000
+    rows, feat 768, the head's 21129-row fc) with both column slices the
+    fused losses take: w[1:21128] (CE with the silence head) and w[0:21128]
+    (CTC). The forward (``la_row_lse``) against float64 (atol 2e-5), the
+    backward against ``row_lse_bwd_plain`` run in float64 (rel-L2 1e-5 on
+    dh, dw and db: float32 FMA over 768 feat), each bit-equal from run to
+    run; the forward timed at this shape beside ``logsumexp(h @ W.T + b)``,
+    each backward kernel beside the chunked cuBLAS route (float32, TF32 off)
+    of its outputs, the plain version and the bound (the smaller of the
+    float32 CUDA-core and the 3xTF32 tensor-core routes, as row 3's)."""
+    import torch
+
+    from lyricalignment_tpu_torch.ops import viterbi
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    h = torch.randn(ROWS_FUSED, 768, device=dev, generator=g) * 0.5
+    w_full = torch.randn(C_CTC, 768, device=dev, generator=g) * 768 ** -0.5
+    b_full = torch.randn(C_CTC, device=dev, generator=g)
+    gl = torch.randn(ROWS_FUSED, device=dev, generator=g) / ROWS_FUSED
+    rows, timed = [], {}
+    for first, name in ((1, "CE w[1:21128]"), (0, "CTC w[0:21128]")):
+        last = C_CTC - 1
+        w, b = w_full[first:last], b_full[first:last]
+        lse = viterbi.row_lse(h, w, b)
+        exact = torch.logsumexp(h.double() @ w.double().T + b.double(), dim=-1)
+        fwd_err = (lse.double() - exact).abs().max().item()
+        fwd_same = torch.equal(lse, viterbi.row_lse(h, w, b))
+        log(f"[train-lse-bwd] {name}: row_lse max_abs_err {fwd_err:.3e} against float64 "
+            f"(<= 2e-5); two runs bit-equal: {fwd_same} "
+            f"{'OK' if fwd_err <= 2e-5 and fwd_same else 'FAIL'}")
+        if not (fwd_err <= 2e-5 and fwd_same):
+            raise AssertionError(f"the row LSE disagrees with float64 ({name})")
+        del exact
+        dh = viterbi.row_lse_bwd_dh(h, w, b, lse, gl)
+        dw, db = viterbi.row_lse_bwd_dw(h, w, b, lse, gl)
+        ref = viterbi.row_lse_bwd_plain(h.double(), w.double(), b.double(), lse.double(),
+                                        gl.double())
+        rels = [rel_l2(x, y) for x, y in zip((dh, dw, db), ref)]
+        errs = [(x.double() - y).abs().max().item() for x, y in zip((dh, dw, db), ref)]
+        same = (torch.equal(dh, viterbi.row_lse_bwd_dh(h, w, b, lse, gl))
+                and all(torch.equal(x, y) for x, y in
+                        zip((dw, db), viterbi.row_lse_bwd_dw(h, w, b, lse, gl))))
+        del ref
+        ok = max(rels) <= 1e-5 and same
+        log(f"[train-lse-bwd] {name}: rel_l2 dh/dw/db {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} "
+            f"(<= 1e-5 against float64), max_abs {max(errs):.3e}; two runs bit-equal: {same} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the row LSE backward disagrees with float64 ({name})")
+        timed[name] = (w, b, lse, max(errs))
+
+    # times at the CE slice: the forward, each backward kernel, the chunked
+    # cuBLAS route of its outputs, the whole plain version
+    w, b, lse, err = timed["CE w[1:21128]"]
+    cols = w.shape[0]
+    flops = 2.0 * ROWS_FUSED * 768 * cols
+    ms = time_ms(lambda: viterbi.row_lse(h, w, b), reps=5)
+    lib_ms = time_ms(lambda: torch.logsumexp(h @ w.T + b, dim=-1), reps=3)
+    nbytes = 4 * (h.numel() + w.numel() + b.numel() + ROWS_FUSED)
+    f32_ms, _ = bound(flops, PEAK_F32, nbytes)
+    tf32_ms, bound_by = bound(3 * flops, PEAK_TF32, nbytes)
+    log(f"[train-lse-bwd] row_lse (la_row_lse) rows={ROWS_FUSED} feat=768 cols={cols}: "
+        f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} (logsumexp(h @ W.T + b)) "
+        f"bound_ms={min(f32_ms, tf32_ms):.4f} ({bound_by}, 3xTF32; float32 CUDA cores "
+        f"{f32_ms:.4f}); {min(f32_ms, tf32_ms) / ms:.3f} of the bound")
+
+    def route_dh():
+        dh = torch.zeros_like(h)
+        for c0 in range(0, cols, viterbi.LSE_CHUNK):
+            wc = w[c0:c0 + viterbi.LSE_CHUNK]
+            dh += torch.exp(h @ wc.T + b[c0:c0 + viterbi.LSE_CHUNK] - lse[:, None]) * gl[:, None] @ wc
+        return dh
+
+    def route_dw():
+        dw, db = torch.empty_like(w), torch.empty_like(b)
+        for c0 in range(0, cols, viterbi.LSE_CHUNK):
+            wc = w[c0:c0 + viterbi.LSE_CHUNK]
+            p = torch.exp(h @ wc.T + b[c0:c0 + viterbi.LSE_CHUNK] - lse[:, None]) * gl[:, None]
+            dw[c0:c0 + viterbi.LSE_CHUNK] = p.T @ h
+            db[c0:c0 + viterbi.LSE_CHUNK] = p.sum(0)
+        return dw, db
+
+    plain_ms = time_ms(lambda: viterbi.row_lse_bwd_plain(h, w, b, lse, gl), reps=3)
+    for kernel, fn, route, out_bytes in (
+            ("row_lse_bwd_dh", lambda: viterbi.row_lse_bwd_dh(h, w, b, lse, gl), route_dh,
+             4 * ROWS_FUSED * 768),
+            ("row_lse_bwd_dw", lambda: viterbi.row_lse_bwd_dw(h, w, b, lse, gl), route_dw,
+             4 * (cols * 768 + cols))):
+        ms = time_ms(fn, reps=5)
+        route_ms = time_ms(route, reps=3)
+        # two products each: the logits again, then dh (or dw); inputs read
+        # once. Two routes to the same work, as row 3's: float32 on the CUDA
+        # cores or three TF32 products a product on the tensor cores; the
+        # bound is the smaller
+        nbytes = 4 * (h.numel() + w.numel() + b.numel() + 2 * ROWS_FUSED) + out_bytes
+        f32_ms, _ = bound(2 * flops, PEAK_F32, nbytes)
+        tf32_ms, bound_by = bound(3 * 2 * flops, PEAK_TF32, nbytes)
+        bound_ms = min(f32_ms, tf32_ms)
+        log(f"[train-lse-bwd] {kernel} rows={ROWS_FUSED} feat=768 cols={cols}: kernel_ms={ms:.4f} "
+            f"chunked cuBLAS route ms={route_ms:.4f} plain_ms (dh, dw and db)={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}, 3xTF32; float32 CUDA cores "
+            f"{f32_ms:.4f}, {f32_ms / ms:.3f} of it); {2 * flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms / ms:.3f} of the bound; ptxas: {ptxas_report('lse.cu', kernel + '_kernel')}")
+        rows.append(dict(name=kernel, route="cuda", source="lyricalignment_tpu_torch/csrc/lse.cu",
+                         replaces="lyricalignment_tpu/ops/viterbi.py:245 (jax.checkpoint over "
+                                  "_chunked_lse's scan, differentiated by autodiff)",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=route_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+    return rows
+
+
+def _ctc_inputs(dev, b, t, n, kinds, seed):
+    """Reduced emissions (normalised-looking log-probs) and targets, one
+    kind a sample: "train" (24 of 48 positions, a repeated pair), "empty"
+    (all padding), "infeasible" (every position, more than the frames). The
+    label columns of a repeated label are equal, as the fused path gathers
+    them from one class."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(b, t, n + 1, device=dev, generator=g) * 2, -1)
+    blank, label = lp[..., 0].contiguous(), lp[..., 1:].contiguous()
+    labels = torch.randint(2, 400, (b, n), device=dev, generator=g, dtype=torch.int32)
+    valid = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    for i, kind in enumerate(kinds):
+        valid[i, :{"train": N_CTC_VALID, "empty": 0, "infeasible": n}[kind]] = True
+        labels[i, 5] = labels[i, 4]
+    for j in range(1, n):
+        repeat = labels[:, j] == labels[:, j - 1]
+        label[:, :, j] = torch.where(repeat[:, None], label[:, :, j - 1], label[:, :, j])
+    return blank, label, labels, valid
+
+
+def _ctc_library_args(blank, label, labels, valid):
+    """``F.ctc_loss``'s arguments for the reduced CTC's own function: the
+    [T, B, 1 + N] reduced emissions as its log-probs and each position's
+    column as its target, a repeat taking the column before it (so that
+    the library's skip rule sees it, and the columns are equal). Its NLL is
+    the reduced recursion's on targets that fit (its gradient is not: it
+    assumes normalised columns)."""
+    import torch
+
+    b, t, n = label.shape
+    lp = torch.cat([blank[..., None], label], dim=-1).transpose(0, 1)
+    cols = torch.arange(1, n + 1, device=label.device).expand(b, n).clone()
+    repeat = torch.zeros_like(valid)
+    repeat[:, 1:] = labels[:, 1:] == labels[:, :-1]
+    for i in range(1, n):
+        cols[:, i] = torch.where(repeat[:, i], cols[:, i - 1], cols[:, i])
+    lengths = valid.sum(dim=1)
+    return lp, cols, torch.full((b,), t, device=label.device, dtype=torch.long), lengths
+
+
+def phase_train_ctc(dev):
+    """(a''): the reduced CTC forward and backward against the plain
+    recursions at the training shape (B = 2, T = 1500, N = 48, 24 valid
+    with a repeated pair), and at B = 3, T = 40 for an all-padding target and
+    one that cannot fit beside a normal one: NLL rtol 1e-5, alphas rtol 1e-5,
+    gradients rel-L2 1e-5, two runs bit-equal; times beside the chain floor
+    (a one-warp probe's cycles a dependent _lse3 step, times T), and the
+    forward beside ``F.ctc_loss`` on the same reduced emissions."""
+    import torch
+    import torch.nn.functional as F
+
+    from lyricalignment_tpu_torch.ops import ctc
+
+    rows = []
+    for b, t, kinds in ((TRAIN_B, TRAIN_T, ["train", "train"]),
+                        (3, 40, ["train", "empty", "infeasible"])):
+        blank, label, labels, valid = _ctc_inputs(dev, b, t, N_CTC, kinds, seed=t)
+        nll, alphas = ctc.ctc_reduced_fwd(blank, label, labels, valid)
+        ref_nll, ref_alphas = ctc.ctc_reduced_fwd_plain(blank, label, labels, valid)
+        gl = torch.ones(b, device=dev) / N_CTC_VALID
+        grads = ctc.ctc_reduced_bwd(alphas, labels, valid, gl)
+        ref_grads = ctc.ctc_reduced_bwd_plain(ref_alphas, labels, valid, gl)
+        nll_rel = ((nll - ref_nll).abs() / ref_nll.abs()).max().item()
+        alpha_rel = ((alphas - ref_alphas).abs() / ref_alphas.abs().clamp(min=1)).max().item()
+        rels = [rel_l2(x, y) for x, y in zip(grads, ref_grads)]
+        errs = [(x - y).abs().max().item() for x, y in zip(grads, ref_grads)]
+        again = ctc.ctc_reduced_bwd(alphas, labels, valid, gl)
+        same = (torch.equal(nll, ctc.ctc_reduced_fwd(blank, label, labels, valid)[0])
+                and all(torch.equal(x, y) for x, y in zip(grads, again)))
+        ok = nll_rel <= 1e-5 and alpha_rel <= 1e-5 and max(rels) <= 1e-5 and same
+        log(f"[train-ctc] B={b} T={t} N={N_CTC} {kinds}: nll {[round(x, 4) for x in nll.tolist()]}"
+            f" (rel diff {nll_rel:.2e}), alphas rel {alpha_rel:.2e}, rel_l2 d_blank/d_label "
+            f"{rels[0]:.2e}/{rels[1]:.2e}; two runs bit-equal: {same} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the reduced CTC kernels disagree with the plain recursions "
+                                 f"at B={b} T={t}")
+        if "infeasible" in kinds and not (nll[2].item() > 1e29 and grads[1][2].abs().max() > 0):
+            raise AssertionError("the target that cannot fit lost its sentinel NLL or gradient")
+
+    # times at the training shape
+    b, t, s_dim = TRAIN_B, TRAIN_T, 2 * N_CTC + 1
+    blank, label, labels, valid = _ctc_inputs(dev, b, t, N_CTC, ["train", "train"], seed=t)
+    nll, alphas = ctc.ctc_reduced_fwd(blank, label, labels, valid)
+    _, ref_alphas = ctc.ctc_reduced_fwd_plain(blank, label, labels, valid)
+    gl = torch.ones(b, device=dev) / N_CTC_VALID
+    grads = ctc.ctc_reduced_bwd(alphas, labels, valid, gl)
+    ref_grads = ctc.ctc_reduced_bwd_plain(ref_alphas, labels, valid, gl)
+    lib_args = _ctc_library_args(blank, label, labels, valid)
+    with torch.no_grad():
+        lib_nll = F.ctc_loss(*lib_args, blank=0, reduction="none")
+    lib_rel = ((lib_nll - nll).abs() / nll.abs()).max().item()
+    log(f"[train-ctc] F.ctc_loss on the same reduced emissions (the forward's library call): "
+        f"nll rel diff {lib_rel:.2e} from the kernel's (<= 1e-5) {'OK' if lib_rel <= 1e-5 else 'FAIL'}")
+    if lib_rel > 1e-5:
+        raise AssertionError("F.ctc_loss does not compute the reduced CTC's NLL here")
+
+    def library_fwd():
+        with torch.no_grad():
+            return F.ctc_loss(*lib_args, blank=0, reduction="none")
+
+    step_cycles = ctc_step_cycles()
+    mhz = sm_clock_mhz()
+    floor_ms = t * step_cycles / (mhz * 1e3)
+    io = {"ctc_reduced_fwd": 4 * (b * t + b * t * N_CTC + 2 * b * N_CTC + b * t * s_dim + b),
+          "ctc_reduced_bwd": 4 * (b * t * s_dim + 2 * b * N_CTC + b + b * t + b * t * N_CTC)}
+    # _lse3 and the add, about 10 operations a state a frame
+    ops = 10.0 * b * t * s_dim
+    # the backward has no library call: F.ctc_loss's gradient assumes
+    # normalised columns, which the reduced emissions are not
+    for kernel, fn, plain, err, library in (
+            ("ctc_reduced_fwd", lambda: ctc.ctc_reduced_fwd(blank, label, labels, valid),
+             lambda: ctc.ctc_reduced_fwd_plain(blank, label, labels, valid),
+             (alphas - ref_alphas).abs().max().item(), library_fwd),
+            ("ctc_reduced_bwd", lambda: ctc.ctc_reduced_bwd(alphas, labels, valid, gl),
+             lambda: ctc.ctc_reduced_bwd_plain(alphas, labels, valid, gl),
+             max((x - y).abs().max().item() for x, y in zip(grads, ref_grads)), None)):
+        ms = time_ms(fn, reps=10)
+        plain_ms = time_ms(plain, reps=1, warmup=0)
+        lib_ms = time_ms(library, reps=10) if library else None
+        bound_ms, bound_by = bound(ops, PEAK_F32, io[kernel])
+        log(f"[train-ctc] {kernel} B={b} T={t} N={N_CTC} (S={s_dim}): kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"(F.ctc_loss) bound_ms={bound_ms:.5f} ({bound_by}); chain floor "
+            f"{floor_ms:.4f} ms ({t} frames x {step_cycles:.1f} cycles a step at {mhz:.0f} MHz), "
+            f"{floor_ms / ms:.3f} of the kernel's time; ptxas: "
+            f"{ptxas_report('ctc.cu', kernel[4:].replace('reduced_', '') + '_kernel')}")
+        rows.append(dict(name=kernel, route="cuda", source="lyricalignment_tpu_torch/csrc/ctc.cu",
+                         replaces="lyricalignment_tpu/train/losses.py:216 (_ctc_nll_single's "
+                                  "lax.scan, differentiated by autodiff)",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, chain_floor_ms=floor_ms))
+    return rows
+
+
 def _train_batch(rng, accum, b, n_vocab_dec, classes, dec_len=40, n_ctc=24):
     """bench_train's stacked micro-batches: noise audio, 24 CTC labels, 30%
     labelled frames, random decoder tokens; numpy [accum, b, ...]."""
@@ -982,8 +1314,10 @@ def phase_train_tiny(dev):
             raise AssertionError(f"kernel {name} was not launched by the GPU train step")
 
 
-def phase_train_medium(dev, card):
-    """(c): whisper-medium at bench_train's operating point."""
+def phase_train_medium(dev, card, medium):
+    """(c): whisper-medium at bench_train's operating point; fills
+    ``medium`` with what (e) reuses: the model, the batch, the config, the
+    peak memory and the mean step."""
     import numpy as np
     import torch
 
@@ -1059,6 +1393,7 @@ def phase_train_medium(dev, card):
         raise AssertionError("non-finite training loss")
     if not all(v > 0 for v in moved.values()):
         raise AssertionError(f"parameters did not move: {moved}")
+    medium.update(model=model, stacked=stacked, tcfg=tcfg, peak_gb=peak_gb, step_ms=mean_s * 1e3)
 
     try:
         trace = _device_trace(lambda: step_fn(state, stacked))
@@ -1114,7 +1449,7 @@ def phase_train_cli(dev, tmp):
            "--fast-gelu", "--train-batch-size", "2", "--dev-batch-size", "4",
            "--accum-grad-steps", "2", "--train-steps", "2", "--eval-steps", "1",
            "--warmup-steps", "0", "--bert-vocab", vocab_path, "--save-dir", save,
-           "--device", dev.type]
+           "--fused-losses", "--profile-at-step", "2", "--device", dev.type]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
                           capture_output=True, text=True, timeout=600)
@@ -1126,6 +1461,7 @@ def phase_train_cli(dev, tmp):
         raise AssertionError("the train CLI failed")
     if not os.path.exists(os.path.join(save, "best_model.pt")):
         raise AssertionError("the train CLI wrote no best_model.pt")
+    _report_cli_trace(os.path.join(save, "profile", "trace.json"))
     _, model, _ = load_model_dir(save, "best", use_bf16=True, device=str(dev))
     aligner = LyricAligner(model, BertWordPieceTokenizer(vocab=vocab), table, use_ctc=True,
                            batch_size=4)
@@ -1133,6 +1469,360 @@ def phase_train_cli(dev, tmp):
     _check_segments(results, requests, lengths)
     log(f"[train-cli] best_model loaded and aligned {len(results)} requests "
         f"({sum(len(r) for r in results)} characters)")
+
+
+FUSED_STEPS = 2
+# a micro-batch of the fused losses adds the row LSE twice (CE with
+# the silence head, CTC), each of its backward kernels twice, and the
+# reduced CTC once each way
+FUSED_KERNELS = dict(TRAIN_KERNELS, la_row_lse=2, la_row_lse_bwd_dh=2, la_row_lse_bwd_dw=2,
+                     la_ctc_reduced_fwd=1, la_ctc_reduced_bwd=1)
+
+
+def _ctc_against_float64(model, micro, vocab):
+    """The align CTC of a micro-batch three ways, on the model's hidden
+    (no dropout): fused (the reduced CTC kernels), unfused (``F.ctc_loss``
+    on float32 log-softmax) and the plain reduced recursion in float64 on
+    float64 logits; with each float32 way's gradient of the CTC group mean
+    with respect to the fc weight against autograd through ``F.ctc_loss`` in
+    float64. Returns ({way: per-sample losses}, {way: grad rel-L2})."""
+    import torch
+    import torch.nn.functional as F
+
+    from lyricalignment_tpu_torch.models.align_model import forward_from_audio
+    from lyricalignment_tpu_torch.ops import viterbi
+    from lyricalignment_tpu_torch.ops.ctc import ctc_reduced_fwd_plain
+    from lyricalignment_tpu_torch.train import losses
+
+    with torch.no_grad():
+        h, _ = forward_from_audio(model, micro["audio"], trim_to_input_length=False,
+                                  align_head_output="hidden")
+    fc = model.align_rnn.fc
+    labels = micro["ctc_labels"]
+    valid = labels != losses.IGNORE_ID
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    tlen = valid.sum(dim=1).clamp(min=1)
+    b, t = h.shape[:2]
+    w64 = fc.weight.detach().double().requires_grad_()
+    lp64 = torch.log_softmax(h.double() @ w64[:vocab].T + fc.bias.detach()[:vocab].double(), -1)
+    nll64 = F.ctc_loss(lp64.transpose(0, 1), safe, torch.full((b,), t, device=h.device),
+                       valid.sum(dim=1), blank=0, reduction="none") / tlen
+    (g64,) = torch.autograd.grad(nll64.mean(), w64)
+    with torch.no_grad():
+        lab = torch.gather(lp64, 2, safe[:, None, :].expand(b, t, safe.shape[1]))
+        red64 = ctc_reduced_fwd_plain(lp64[..., 0], lab, safe, valid)[0] / tlen
+        # the float32 pieces of the fused path against float64, and its
+        # recursion alone on the float64 emissions rounded to float32
+        w, bias = fc.weight, fc.bias
+        lse = viterbi.class_lse(h, w[:vocab], bias[:vocab])
+        lse64 = torch.logsumexp(h.double() @ w[:vocab].double().T + bias[:vocab].double(), -1)
+        blank32 = (h @ w[0] + bias[0]) - lse
+        label32 = viterbi.gather_label_logits(h, w, bias, safe) - lse[..., None]
+        errs = {"lse": (lse.double() - lse64).abs().max().item(),
+                "blank_lp": (blank32.double() - lp64[..., 0]).abs().max().item(),
+                "label_lp": (label32.double() - lab).abs().max().item()}
+        rec32 = losses.ctc_reduced_nll(lp64[..., 0].float(), lab.float(), safe, valid) / tlen
+        log(f"[train-fused] fused emissions' max abs error against float64 {json.dumps(errs)} "
+            f"(lse <= 2e-5); the reduced CTC kernel on float64 emissions rounded to float32: "
+            f"{[round(x, 5) for x in rec32.tolist()]}")
+        if errs["lse"] > 2e-5:
+            raise AssertionError("the row LSE on trained weights is far from float64")
+    del lp64, lab
+    per, rel = {"float64": red64, "float64 F.ctc_loss": nll64.detach()}, {}
+    for way in ("fused", "unfused"):
+        fc.weight.grad = None
+        if way == "fused":
+            nll = losses.ctc_per_example_fused(h, fc, labels, vocab)
+        else:
+            nll = losses.ctc_per_example(fc(h)[:, :, :vocab], labels, micro["ctc_frames_needed"])
+        (g,) = torch.autograd.grad(nll.mean(), fc.weight)
+        per[way] = nll.detach()
+        rel[way] = rel_l2(g, g64)
+    return per, rel
+
+
+def phase_train_fused(dev, card, medium):
+    """(e): whisper-medium at (c)'s operating point with ``fused_losses``.
+    First, on (c)'s weights and first micro-batch without dropout: the row
+    LSE against float64 (atol 2e-5: trained weights give logits whose
+    products share a sign, where truncating adds drift), the align CTC
+    fused, unfused and in float64 (the fused within rtol 1e-4 of
+    float64, its fc gradient within rel-L2 2e-3 of float64's: float32
+    emissions and alpha recursion over 1500 frames); the whole fused losses
+    against the unfused ones (CE and CTC rtol 1e-4) and the gradients of the
+    head's fc and of one encoder weight (rel-L2 2e-3 each: the two float32
+    CTC gradients' errors add, and the encoder's backward rounds in bf16). Then one warm-up step and FUSED_STEPS timed
+    ones with a fresh optimizer state: step ms, peak memory beside (c)'s and
+    the launch counts."""
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.train.trainer import (
+        init_train_state,
+        make_train_step,
+        multitask_losses,
+    )
+
+    model, stacked, tcfg = medium["model"], medium["stacked"], medium["tcfg"]
+    fused_cfg = dataclasses.replace(tcfg, fused_losses=True)
+    micro = {k: v[0] for k, v in stacked.items()}
+    per, ctc_rel = _ctc_against_float64(model, micro, tcfg.vocab_size)
+    ctc_loss_rel = {way: ((per[way].double() - per["float64"]).abs()
+                          / per["float64"].abs()).max().item() for way in ("fused", "unfused")}
+    ref_gap = ((per["float64 F.ctc_loss"] - per["float64"]).abs() / per["float64"].abs()).max()
+    ok = ctc_loss_rel["fused"] <= 1e-4 and ctc_rel["fused"] <= 2e-3
+    log(f"[train-fused] align CTC of the first micro-batch, per sample: "
+        f"{json.dumps({k: [round(x, 5) for x in v.tolist()] for k, v in per.items()})}; rel diff "
+        f"from float64 fused {ctc_loss_rel['fused']:.2e} (<= 1e-4), unfused "
+        f"{ctc_loss_rel['unfused']:.2e} (float64's two ways {ref_gap.item():.1e}); fc-weight "
+        f"gradient rel_l2 from float64 F.ctc_loss fused {ctc_rel['fused']:.2e} (<= 2e-3), unfused "
+        f"{ctc_rel['unfused']:.2e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused CTC is far from its float64 value")
+    del per
+    watch = ("align_rnn.fc.weight", "whisper_model.encoder.blocks.23.mlp.0.weight")
+    params = dict(model.named_parameters())
+    runs = {}
+    for name, cfg in (("unfused", tcfg), ("fused", fused_cfg)):
+        for p in params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        total, losses = multitask_losses(model, cfg, micro, None)
+        total.backward()
+        torch.cuda.synchronize()
+        runs[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                      {n: params[n].grad.detach().float().clone() for n in watch},
+                      torch.cuda.max_memory_allocated() / 1e9)
+    for p in params.values():
+        p.grad = None
+    (lu, gu, mu), (lf, gf, mf) = runs["unfused"], runs["fused"]
+    loss_rel = {k: abs(lf[k] - lu[k]) / max(abs(lu[k]), 1e-12) for k in ("align_ce", "align_ctc")}
+    grad_rel = {n: rel_l2(gf[n], gu[n]) for n in watch}
+    bounds = {watch[0]: 2e-3, watch[1]: 2e-3}
+    ok = max(loss_rel.values()) <= 1e-4 and all(grad_rel[n] <= bounds[n] for n in watch)
+    log(f"[train-fused] first micro-batch, fused vs unfused: losses {json.dumps(lf)} vs "
+        f"{json.dumps(lu)}, rel diff {json.dumps({k: f'{v:.2e}' for k, v in loss_rel.items()})} "
+        f"(<= 1e-4); grad rel_l2 "
+        f"{json.dumps({n: f'{v:.2e}' for n, v in grad_rel.items()})} "
+        f"(<= {json.dumps(bounds)}); one micro-batch's forward + backward peak "
+        f"{mf:.2f} GB fused, {mu:.2f} GB unfused {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused losses disagree with the unfused ones")
+    del gu, gf
+
+    state, tx = init_train_state(model, fused_cfg)
+    step_fn = make_train_step(fused_cfg, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses = step_fn(state, stacked)
+    torch.cuda.synchronize()
+    log(f"[train-fused] warm-up step {time.perf_counter() - t0:.3f} s, losses "
+        f"{json.dumps({k: round(float(v), 5) for k, v in losses.items()})}")
+    kernels.reset_launch_counts()
+    times, all_losses = [], []
+    for _ in range(FUSED_STEPS):
+        t0 = time.perf_counter()
+        state, losses = step_fn(state, stacked)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        all_losses.append({k: float(v) for k, v in losses.items()})
+    counts = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_s = sum(times) / FUSED_STEPS
+    log(f"[train-fused] whisper-medium bf16, {ACCUM} x {TRAIN_B} x {SECONDS} s, fused losses: "
+        f"step ms {[round(x * 1e3, 1) for x in times]} (mean {mean_s * 1e3:.1f}; unfused (c) "
+        f"{medium['step_ms']:.1f}), {ACCUM * TRAIN_B * SECONDS / mean_s:.2f} trained audio-s/s, "
+        f"max_memory_allocated {peak_gb:.2f} GB (unfused (c) {medium['peak_gb']:.2f} GB) on "
+        f"{card}; launches in {FUSED_STEPS} steps {counts}")
+    log(f"[train-fused] losses {json.dumps(all_losses)}")
+    expected = {name: FUSED_STEPS * ACCUM * n for name, n in FUSED_KERNELS.items()}
+    if counts != expected:
+        raise AssertionError(f"fused train steps launched {counts}, expected {expected}")
+    if not all(math.isfinite(v) for row in all_losses for v in row.values()):
+        raise AssertionError("non-finite fused training loss")
+    del state, step_fn, tx
+    return counts
+
+
+def _report_cli_trace(path):
+    """The train CLI's profile of its step 2: the host spans ``data`` and
+    ``train_step`` and the device's busy time in that step."""
+    if not os.path.exists(path):
+        raise AssertionError(f"the train CLI wrote no profile at {path}")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in ("data", "train_step"):
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy_us, end_us = 0.0, -math.inf
+    for t0, t1 in device:
+        busy_us += max(0.0, t1 - max(t0, end_us))
+        end_us = max(end_us, t1)
+    log(f"[train-cli] profile of step 2 ({os.path.getsize(path) / 1e6:.1f} MB, {len(events)} "
+        f"events): host spans {json.dumps({k: round(v, 3) for k, v in spans.items()})} ms, "
+        f"device busy {busy_us / 1e3:.3f} ms in {len(device)} kernels and copies")
+    if set(spans) != {"data", "train_step"}:
+        raise AssertionError(f"the profile lacks the data / train_step spans: {sorted(spans)}")
+
+
+# ---------------------------------------------------------------------------
+# Phase "int8": the int8 encoder and the int8 cross K/V at whisper-medium
+# ---------------------------------------------------------------------------
+
+INT8_DECODE_NEW = 24   # beam steps a timed int8 / bf16 decode may take
+
+
+def phase_int8(dev, card, model, tmp):
+    """whisper-medium bf16, B = 16 x 30 s, L = 48, CTC, the serving model's
+    weights: the alignment batch with the int8 encoder on ``int8_resident``
+    weights beside the bf16 one (audio-s/s of each, bf16, int8, int8, bf16),
+    the encoder output's rel-L2 and the share of onsets and offsets within
+    one 20 ms frame of the bf16 path's; a trace of the int8 encoder, whose
+    int8 GEMMs must show; then ``beam_search`` of 8 windows with int8 cross
+    K/V beside bf16: decode ms a step, the first step's logits rel-L2 and
+    the cross K/V cache bytes."""
+    import re
+
+    import torch
+
+    from lyricalignment_tpu_torch import EMBED_FRAMES, N_FRAMES
+    from lyricalignment_tpu_torch.cli.inference_transcript import suppress_token_ids
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+    from lyricalignment_tpu_torch.models.align_model import AlignModel, forward_from_audio
+    from lyricalignment_tpu_torch.models.whisper import (
+        init_decode_cache,
+        int8_resident,
+        prime_decode_cache,
+    )
+    from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
+    from lyricalignment_tpu_torch.ops.viterbi import viterbi_align_fused
+    from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+
+    t_start = time.perf_counter()
+    cfg8 = dataclasses.replace(model.cfg, whisper=dataclasses.replace(model.cfg.whisper,
+                                                                      int8_encoder=True))
+    with torch.device("meta"):
+        model8 = AlignModel(cfg8)
+    # the bf16 model's tensors, shared; then the encoder linears int8-resident
+    model8.load_state_dict(model.state_dict(), assign=True)
+    int8_resident(model8.whisper_model).eval()
+    g = torch.Generator(device=dev).manual_seed(5)
+    audio = torch.randn(B, SECONDS * 16000, device=dev, generator=g) * 0.1
+    frames = torch.full((B,), EMBED_FRAMES, dtype=torch.int32, device=dev)
+    labels = torch.randint(2, 400, (B, L_BENCH), device=dev, generator=g, dtype=torch.int32)
+    num_labels = torch.full((B,), L_BENCH, dtype=torch.int32, device=dev)
+
+    @torch.inference_mode()
+    def align(m):
+        h, _ = forward_from_audio(m, audio, frame_lengths=frames, mel_lengths=2 * frames,
+                                  align_head_output="hidden")
+        fc = m.align_rnn.fc
+        return viterbi_align_fused(h, fc.weight, fc.bias, labels, num_labels, frames, "ctc")
+
+    walls = {"bf16": [], "int8": []}
+    outs = {}
+    for name in ("bf16", "int8", "int8", "bf16", "bf16", "int8"):
+        m = model if name == "bf16" else model8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = align(m)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    rates = {k: [round(B * SECONDS / x, 1) for x in v[1:]] for k, v in walls.items()}
+    with torch.inference_mode():
+        mel = pad_or_trim(log_mel(audio, n_mels=80), N_FRAMES)
+        enc16 = model.whisper_model.embed_audio(mel)
+        enc8 = model8.whisper_model.embed_audio(mel)
+    enc_rel = rel_l2(enc8, enc16)
+    (on16, off16), (on8, off8) = outs["bf16"], outs["int8"]
+    within = torch.cat([(on8 - on16).abs() <= 1, (off8 - off16).abs() <= 1]).double().mean().item()
+    exact = torch.cat([on8 == on16, off8 == off16]).double().mean().item()
+    log(f"[int8] medium bf16 B={B} {SECONDS} s L={L_BENCH} CTC alignment: audio-s/s bf16 "
+        f"{rates['bf16']} int8-encoder {rates['int8']} (each after a first batch) on {card}; "
+        f"encoder output rel_l2 int8 vs bf16 {enc_rel:.3e} (<= 0.1); onsets/offsets within one "
+        f"20 ms frame of bf16's {within:.4f}, equal {exact:.4f}")
+    if not (bool(torch.isfinite(enc8.float()).all()) and enc_rel <= 0.1):
+        raise AssertionError("the int8 encoder is far from the bf16 one")
+
+    try:
+        trace = _device_trace(lambda: model8.whisper_model.embed_audio(mel))
+    except Exception as exc:  # noqa: BLE001 - CUPTI may be unavailable
+        log(f"[int8-trace] not measured: {type(exc).__name__}: {exc}")
+        trace = None
+    if trace is not None:
+        busy, by_name = trace
+        int8_names = {n: v for n, v in by_name.items()
+                      if re.search(r"s8|i8|int8|imma|igemm", n, re.IGNORECASE)}
+        n_int8 = sum(n for _, n in int8_names.values())
+        log(f"[int8-trace] one int8 encoder forward (B={B}): device busy {busy:.2f} ms; "
+            f"{n_int8} launches of int8 GEMM kernels ({sum(ms for ms, _ in int8_names.values()):.2f}"
+            f" ms), 6 a layer expected ({6 * cfg8.whisper.n_audio_layer}); top device kernels:")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"[int8-trace]   {ms:9.3f} {n:5d}  {name[:110]}")
+        if n_int8 < 6 * cfg8.whisper.n_audio_layer:
+            raise AssertionError("the int8 GEMMs do not show in the encoder's trace")
+    del model8, enc8
+
+    # int8 cross K/V: beam_search of 8 windows beside bf16
+    whisper = model.whisper_model
+    wcfg = whisper.cfg
+    cfg_kv = dataclasses.replace(wcfg, int8_cross_kv=True)
+    tok = WhisperTokenizer(bpe_path=_write_ranks(tmp))
+    suppress_ids, begin_suppress_ids = suppress_token_ids(tok)
+    prompt = torch.tensor([list(tok.sot_sequence) + [tok.no_timestamps]] * TR_WINDOWS, device=dev)
+    xa = enc16[:TR_WINDOWS].contiguous()
+    steps = [0]
+    real_step = beam_mod.decode_step
+
+    def counted_step(*a):
+        steps[0] += 1
+        return real_step(*a)
+
+    @torch.no_grad()
+    def decode(cfg):
+        steps[0] = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tokens, _ = beam_mod.beam_search(whisper, cfg, xa, prompt, beam_size=TR_BEAM,
+                                         max_new_tokens=INT8_DECODE_NEW, eot=tok.eot,
+                                         suppress_ids=suppress_ids,
+                                         begin_suppress_ids=begin_suppress_ids)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), steps[0]
+
+    beam_mod.decode_step = counted_step
+    try:
+        step_ms = {"bf16": [], "int8": []}
+        for name in ("bf16", "int8", "int8", "bf16", "bf16", "int8"):
+            ms, n = decode(wcfg if name == "bf16" else cfg_kv)
+            step_ms[name].append(round(ms / max(n, 1), 3))
+    finally:
+        beam_mod.decode_step = real_step
+    with torch.no_grad():
+        caches, first = {}, {}
+        for name, cfg in (("bf16", wcfg), ("int8", cfg_kv)):
+            caches[name] = init_decode_cache(whisper, cfg, xa, prompt.shape[1], 8, TR_BEAM)
+            first[name], _, _ = prime_decode_cache(whisper, cfg, prompt, caches[name])
+    cross_bytes = {name: sum(t.numel() * t.element_size() for blk in c["blocks"]
+                             for k, t in blk.items() if k.startswith("cross_"))
+                   for name, c in caches.items()}
+    logit_rel = rel_l2(first["int8"], first["bf16"])
+    log(f"[int8-decode] beam_search beam {TR_BEAM}, {TR_WINDOWS} windows, up to "
+        f"{INT8_DECODE_NEW} new tokens: ms a step (each after the first call) bf16 "
+        f"{step_ms['bf16'][1:]} int8 cross K/V {step_ms['int8'][1:]}; first step's logits rel_l2 "
+        f"int8 vs bf16 {logit_rel:.3e} (<= 5e-2); cross K/V cache {cross_bytes['bf16'] / 1e6:.1f} "
+        f"MB bf16, {cross_bytes['int8'] / 1e6:.1f} MB int8 with scales, on {card}")
+    if not logit_rel <= 5e-2:
+        raise AssertionError("the int8 cross K/V logits are far from bf16's")
+    del caches, enc16, xa
+    torch.cuda.empty_cache()
+    log(f"[int8] phase passed in {time.perf_counter() - t_start:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1746,14 +2436,21 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             model, counts = phase_serving(dev, tmp)
             phase_tiny_reference(dev, tmp)
-        phase_throughput(dev, model, card)
+            phase_throughput(dev, model, card)
+            phase_int8(dev, card, model, tmp)
         del model
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
         train_rows = phase_train_kernels(dev)
+        fused_rows = phase_train_lse_bwd(dev) + phase_train_ctc(dev)
+        torch.cuda.empty_cache()
         phase_train_tiny(dev)
-        train_counts = phase_train_medium(dev, card)
+        medium = {}
+        train_counts = phase_train_medium(dev, card, medium)
+        torch.cuda.empty_cache()
+        fused_counts = phase_train_fused(dev, card, medium)
+        medium.clear()
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             phase_train_cli(dev, tmp)
@@ -1785,12 +2482,20 @@ def main() -> int:
         row["launches"] = train_counts[f"la_{row['name']}"]
         log(f"[kernel] {row['name']}: {row['launches']} launches in {TRAIN_STEPS} train steps, "
             f"{row['launches'] // TRAIN_STEPS} a step")
-    rows += train_rows
+    # the kernels the fused losses add: their launches in the fused steps of
+    # (e)
+    for row in fused_rows:
+        row["launches"] = fused_counts[f"la_{row['name']}"]
+        log(f"[kernel] {row['name']}: {row['launches']} launches in {FUSED_STEPS} fused train "
+            f"steps, {row['launches'] // FUSED_STEPS} a step")
+    rows += train_rows + fused_rows
     # the transcription path: one whisper-medium batch of 8 windows at beam
     # 5, and the tiny model's 70 s long-form song
-    # and the JSONL service's run (phase "serve")
+    # and the JSONL service's run (phase "serve"), and the fused train
+    # steps of (e) (the row LSE forward is on that path too)
     for row in rows:
         launcher = launchers.get(row["name"], f"la_{row['name']}")
+        row["fused_train_launches"] = fused_counts.get(launcher, 0)
         row["transcribe_launches"] = transcribe_counts.get(launcher, 0)
         row["longform_song_launches"] = song["song_counts"].get(launcher, 0)
         row["serve_launches"] = serve_counts.get(launcher, 0)

@@ -32,6 +32,7 @@ from lyricalignment_tpu_torch.models.whisper import (
     WHISPER_DIMS,
     WhisperConfig,
     bf16_resident,
+    int8_resident,
 )
 from lyricalignment_tpu_torch.text.bert_tokenizer import (
     BertWordPieceTokenizer,
@@ -107,7 +108,9 @@ def build_model_config(
     train_alignment: bool = True,
     train_transcript: bool = False,
     fast_gelu: bool = False,
+    int8_encoder: bool = False,
     onepass_encoder: bool = False,
+    int8_cross_kv: bool = False,
     whisper_dims: Optional[dict] = None,
 ) -> AlignModelConfig:
     """``whisper_dims`` (the ten architecture ints of ``WhisperConfig``)
@@ -117,7 +120,8 @@ def build_model_config(
             else WHISPER_CONFIGS[whisper_model])
     wcfg = dataclasses.replace(
         wcfg, compute_dtype=torch.bfloat16 if use_bf16 else torch.float32,
-        fast_gelu=fast_gelu, onepass_encoder=onepass_encoder)
+        fast_gelu=fast_gelu, int8_encoder=int8_encoder, onepass_encoder=onepass_encoder,
+        int8_cross_kv=int8_cross_kv)
     return AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=output_dim,
                             freeze_encoder=freeze_encoder, train_alignment=train_alignment,
                             train_transcript=train_transcript)
@@ -143,17 +147,23 @@ def init_model(args, mcfg: AlignModelConfig, seed: int, device: torch.device) ->
 
 def load_model_dir(
     model_dir: str, model_name: str = "best", use_bf16: bool = False,
-    fast_gelu: bool = False, onepass_encoder: bool = True, device: str = "cuda",
+    fast_gelu: bool = False, int8_encoder: bool = False, onepass_encoder: bool = True,
+    int8_cross_kv: bool = False, device: str = "cuda",
 ) -> Tuple[AlignModelConfig, AlignModel, Dict]:
     """Load a model dir into an ``AlignModel`` in eval mode on ``device``.
-    Under ``use_bf16`` the whisper weights are made bf16-resident.
-    ``onepass_encoder`` defaults on for inference, as in the JAX package."""
+    Under ``use_bf16`` the whisper weights are made bf16-resident, then
+    under ``int8_encoder`` the encoder blocks' linears int8-resident (after
+    the bf16 cast, so the grid is the dynamic path's); the model dir on disk
+    stays full precision. ``onepass_encoder`` defaults on for inference, as
+    in the JAX package; ``int8_cross_kv`` quantises the decode cache's cross
+    K/V."""
     dev = resolve_device(device)
     train_args = load_json(os.path.join(model_dir, "args.json"))
     model_args = load_json(os.path.join(model_dir, "model_args.json"))
     mcfg = build_model_config(
         train_args["whisper_model"], output_dim=model_args["output_dim"],
-        use_bf16=use_bf16, fast_gelu=fast_gelu, onepass_encoder=onepass_encoder,
+        use_bf16=use_bf16, fast_gelu=fast_gelu, int8_encoder=int8_encoder,
+        onepass_encoder=onepass_encoder, int8_cross_kv=int8_cross_kv,
         freeze_encoder=model_args.get("freeze_encoder", False),
         train_alignment=model_args.get("train_alignment", True),
         train_transcript=model_args.get("train_transcript", False),
@@ -171,4 +181,6 @@ def load_model_dir(
     model.load_state_dict(load_reference_checkpoint(base + ".pt"), strict=True)
     if use_bf16:
         bf16_resident(model.whisper_model)
+    if int8_encoder:
+        int8_resident(model.whisper_model)
     return mcfg, model.to(dev).eval(), train_args

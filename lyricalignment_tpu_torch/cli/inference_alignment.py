@@ -54,6 +54,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--fast-gelu", action="store_true",
                    help="tanh-approximate GELU in the encoder")
+    p.add_argument("--int8-encoder", action="store_true",
+                   help="W8A8 int8 encoder matmuls on int8-resident weights "
+                        "(~1%% relative error per matmul, above bf16 rounding)")
     p.add_argument("--max-label-len", type=int, default=128)
     p.add_argument("--no-fused-align", action="store_true",
                    help="materialise the full [B, T, C] logits instead of "
@@ -149,7 +152,8 @@ def main(argv=None):
         raise SystemExit("--model-dir and --test-data must exist")
 
     _, model, _ = load_model_dir(args.model_dir, args.model_name, use_bf16=args.bf16,
-                                 fast_gelu=args.fast_gelu, device=args.device)
+                                 fast_gelu=args.fast_gelu, int8_encoder=args.int8_encoder,
+                                 device=args.device)
     if args.bert_vocab:
         bert = BertWordPieceTokenizer(vocab_path=args.bert_vocab)
     elif args.synthetic_vocab:

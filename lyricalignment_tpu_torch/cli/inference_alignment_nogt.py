@@ -43,7 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--fast-gelu", action="store_true",
                    help="tanh-approximate GELU in the encoder")
     p.add_argument("--int8-encoder", action="store_true",
-                   help="int8 encoder matmuls (not ported yet: raises)")
+                   help="W8A8 int8 encoder matmuls on int8-resident weights")
     p.add_argument("--max-label-len", type=int, default=128)
     p.add_argument("-o", "--output", type=str, default=None,
                    help="optional JSON output path")
@@ -56,14 +56,13 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.int8_encoder:
-        raise SystemExit("--int8-encoder is not ported yet (ROADMAP.md queue 1, int8)")
     set_seed(args.seed)
     if not os.path.exists(args.model_dir) or not os.path.exists(args.test_data):
         raise SystemExit("--model-dir and --test-data must exist")
 
     _, model, _ = load_model_dir(args.model_dir, args.model_name, use_bf16=args.bf16,
-                                 fast_gelu=args.fast_gelu, device=args.device)
+                                 fast_gelu=args.fast_gelu, int8_encoder=args.int8_encoder,
+                                 device=args.device)
     bert, _ = build_tokenizers(args)
     table = load_pronunciation_table()
     records = read_data(args.test_data)

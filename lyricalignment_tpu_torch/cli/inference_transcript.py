@@ -87,6 +87,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--fast-gelu", action="store_true",
                    help="tanh-approximate GELU (error below bf16 rounding)")
+    p.add_argument("--int8-cross-kv", action="store_true",
+                   help="int8-quantise the decode cache's cross-attention K/V "
+                        "(~0.5-1%% relative attention-output error)")
     p.add_argument("--seed", type=int, default=114514)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the plain PyTorch versions "
@@ -220,14 +223,16 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
     return results
 
 
-def load_pretrained_whisper(path: str, bf16: bool, device: str):
+def load_pretrained_whisper(path: str, bf16: bool, device: str, int8_cross_kv: bool = False):
     """(config, ``Whisper`` in eval mode on ``device``) from an OpenAI
     ``.pt`` checkpoint, its dims giving the config (``bf16``: bfloat16
-    compute with bf16-resident weights)."""
+    compute with bf16-resident weights; ``int8_cross_kv``: int8 cross K/V
+    in the decode cache)."""
     dev = resolve_device(device)
     wcfg, sd = load_openai_checkpoint(path)
     if bf16:
         wcfg = dataclasses.replace(wcfg, compute_dtype=torch.bfloat16)
+    wcfg = dataclasses.replace(wcfg, int8_cross_kv=int8_cross_kv)
     whisper = Whisper(wcfg)
     whisper.load_state_dict(sd, strict=True)
     if bf16:
@@ -250,12 +255,13 @@ def main(argv=None):
 
     if os.path.exists(args.model_dir) and not args.use_pretrained:
         mcfg, model, _ = load_model_dir(args.model_dir, "best", use_bf16=args.bf16,
-                                        fast_gelu=args.fast_gelu, device=args.device)
+                                        fast_gelu=args.fast_gelu,
+                                        int8_cross_kv=args.int8_cross_kv, device=args.device)
         wcfg, whisper = mcfg.whisper, model.whisper_model
     elif args.whisper_checkpoint:
         print("Use pretrained model")
         wcfg, whisper = load_pretrained_whisper(args.whisper_checkpoint, args.bf16,
-                                                args.device)
+                                                args.device, args.int8_cross_kv)
     else:
         raise SystemExit("--model-dir not found; pass --whisper-checkpoint for "
                          "a pretrained run (no network downloads available)")

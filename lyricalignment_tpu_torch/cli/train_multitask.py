@@ -8,9 +8,14 @@ checkpoints — on one device (``--device cuda`` by default; ``cpu`` runs the
 kernels' plain versions). ``--resume dir/last_model`` continues from a
 checkpoint's weights, optimizer state and step.
 
-Not ported yet (each raises or is absent): the mesh and pipeline flags
-(``--mesh-data/--mesh-model/--mesh-pipe``), ``--tensorboard``,
-``--profile-at-step``, ``--fused-losses`` and the whisper BPE codec
+``--fused-losses`` computes the align losses from the head's hidden and
+its fc (no [B, T, C] logits); ``--tensorboard`` adds TensorBoard scalars
+beside ``metrics.jsonl``; ``--profile-at-step N`` writes a profile of step N
+(``torch.profiler``, host spans ``data`` and ``train_step`` and the device's
+kernels) to ``save_dir/profile/trace.json``.
+
+Not ported yet (absent): the mesh and pipeline flags
+(``--mesh-data/--mesh-model/--mesh-pipe``) and the whisper BPE codec
 (``--whisper-bpe``).
 
 Example:
@@ -59,7 +64,7 @@ from lyricalignment_tpu_torch.train.trainer import (
     make_train_step,
     stack_microbatches,
 )
-from lyricalignment_tpu_torch.utils.observability import MetricLogger
+from lyricalignment_tpu_torch.utils.observability import MetricLogger, profile_session, trace
 
 
 def parse_args(argv=None):
@@ -95,14 +100,16 @@ def parse_args(argv=None):
     p.add_argument("--bf16-adam-mu", action="store_true",
                    help="store Adam's first moment in bf16")
     p.add_argument("--fused-losses", action="store_true",
-                   help="not ported yet: raises")
+                   help="align losses from the head's hidden and fc: the row LSE "
+                        "and reduced CTC kernels, no [B, T, C] logits")
     p.add_argument("--max-label-len", type=int, default=128)
     p.add_argument("--max-decoder-len", type=int, default=160)
     p.add_argument("--log-every", type=int, default=1,
                    help="write metrics every N steps (a device sync per write)")
-    p.add_argument("--tensorboard", action="store_true", help="not ported yet: raises")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="TensorBoard scalars in save_dir/tb (needs the tensorboard package)")
     p.add_argument("--profile-at-step", type=int, default=0,
-                   help="not ported yet: any value but 0 raises")
+                   help="profile this step (0: none) into save_dir/profile/trace.json")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint (e.g. result/last_model) to resume weights, "
                         "optimizer state and step from; the schedule continues")
@@ -114,11 +121,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, on in (("--fused-losses", args.fused_losses),
-                     ("--tensorboard", args.tensorboard),
-                     ("--profile-at-step", args.profile_at_step)):
-        if on:
-            raise SystemExit(f"{flag} is not ported to lyricalignment_tpu_torch yet")
     device = resolve_device(args.device)
     set_seed(args.seed)
     os.makedirs(args.save_dir, exist_ok=True)
@@ -152,7 +154,7 @@ def main(argv=None):
         vocab_size=len(bert), remat=args.remat, seed=args.seed,
         grad_accum_dtype=torch.bfloat16 if args.bf16_grad_accum else None,
         adam_mu_dtype=torch.bfloat16 if args.bf16_adam_mu else None,
-        freeze_encoder=args.freeze_encoder)
+        fused_losses=args.fused_losses, freeze_encoder=args.freeze_encoder)
 
     def loader(paths, batch_size, train):
         pcfg = PipelineConfig(batch_size=batch_size, use_ctc=args.use_ctc_loss,
@@ -186,14 +188,26 @@ def main(argv=None):
           f"transcript: {init_losses['trans_ce']:.4f}, "
           f"transcript CTC: {init_losses['trans_ctc']:.4f}")
     policy = BestCheckpointPolicy(args.save_dir, init_losses)
-    metrics = MetricLogger(args.save_dir)
+    metrics = MetricLogger(args.save_dir, tensorboard=args.tensorboard)
     train_iter = infinite_batches(train_loader)
     avg = {k: 0.0 for k in init_losses}
     t_start = time.time()
+    profiling = None
 
     for step in range(start_step + 1, args.train_steps + 1):
-        stacked = stack_microbatches([next(train_iter) for _ in range(args.accum_grad_steps)])
-        state, losses = train_step(state, stacked, args.seed)
+        if args.profile_at_step and step == args.profile_at_step:
+            profiling = profile_session(os.path.join(args.save_dir, "profile"))
+            profiling.__enter__()
+        with trace("data"):
+            stacked = stack_microbatches(
+                [next(train_iter) for _ in range(args.accum_grad_steps)])
+        with trace("train_step"):
+            state, losses = train_step(state, stacked, args.seed)
+        if profiling is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)  # the step's device work inside the profile
+            profiling.__exit__(None, None, None)
+            profiling = None
         losses = {k: float(v) for k, v in losses.items()}
         if step % args.log_every == 0:
             metrics.log(step, losses)

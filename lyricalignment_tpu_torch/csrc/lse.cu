@@ -9,11 +9,22 @@
 // Precision.HIGHEST, a multi-pass split of each float32 product. Here the
 // logits are formed on the tensor cores by the same kind of split, 3xTF32:
 //   x = x_hi + x_lo, x_hi = x with its low 13 bits cleared (what the tensor
-//   cores read of a 32-bit operand: they truncate), x_lo = x - x_hi (exact);
+//   cores read of a 32-bit operand: they truncate), x_lo = x - x_hi rounded
+//   to the nearest TF32 value;
 //   h . w ~ h_lo . w_hi + h_hi . w_lo + h_hi . w_hi, summed in float32.
 // lo is formed against the truncated hi, so hi + lo is the float32 value
 // whatever the hardware drops of hi; what is left out is lo . lo and the
-// truncation of lo itself, 2^-20 of a product each.
+// rounding of lo, 2^-22 of a product each. lo is rounded, not left to the
+// tensor cores to truncate: a truncated lo has the sign of x, so on a row
+// whose products share a sign (the largest logits of trained weights) the
+// dropped parts would all pull one way.
+//
+// The tensor cores' own float32 adds into a wgmma accumulator truncate as
+// well, and a sum of all 288 products of a row's 768 feat kept in one
+// accumulator drifted toward zero: on trained weights the lse was off by
+// 1.5e-4. Each group of six products (16 feat) therefore starts a fresh
+// accumulator, which is added into a running float32 sum in registers
+// with round-to-nearest adds.
 //
 // Bound on H100: operations. At the main path (B = 16 x 1500 rows, feat
 // 768, 21127 columns) the function is 2 x 24000 x 768 x 21127 = 779 GFLOP:
@@ -23,7 +34,7 @@
 //   w_lo once (w_hi is w itself), row_lse_kernel forms partial (max, sum)
 //   pairs, merge_kernel combines them.
 // * row_lse_kernel is a persistent grid of one block per SM walking work
-//   items of (128 rows of h, a range of 256-column tiles of w); consecutive
+//   items of (128 rows of h, a range of 128-column tiles of w); consecutive
 //   items share their rows, so neighbouring SMs read the same h from L2.
 //   Columns are split into ranges so that the items fill the grid's last
 //   wave; each item writes its rows' (max, sum) to scratch and the merge
@@ -31,20 +42,23 @@
 //   to run.
 // * Warpgroup 0 is the producer: one thread keeps a ring of stages in
 //   flight with TMA, each 32 feat of the item's 128 rows of h and of the
-//   tile's 256 rows of w_hi and w_lo (tensor maps with feat innermost,
+//   tile's 128 rows of w_hi and w_lo (tensor maps with feat innermost,
 //   128-byte rows, 128-byte swizzle; rows, columns and feat past the
 //   extents arrive as zeros), completion on full/empty mbarriers. It hands
 //   its registers to the consumers (setmaxnreg).
 // * Warpgroups 1-2 each own 64 rows. A consumer reads its h fragment from
 //   the stage into registers, splits it there, and issues wgmma
-//   m64n256k8.tf32 with A from registers and the w tiles as the K-major B
-//   operand: 128 float32 accumulators a thread. With A in registers a
-//   product reads 8 KB of shared memory in its 128 tensor-core clocks, half
-//   of what the SM can deliver. Products are committed in groups of half a
-//   stage (two k-steps, six products) on two sets of A registers, so the
-//   next group's fragment is loaded and split while one runs.
-// * After a tile's last product the epilogue runs on the accumulator
-//   fragment: bias added (-inf for columns past `cols`, whose products are
+//   m64n128k8.tf32 with A from registers and the w tiles as the K-major B
+//   operand: 64 float32 accumulators a thread, and 64 more for the running
+//   sum. With A in registers a product reads 4 KB of shared memory in its
+//   64 tensor-core clocks, half of what the SM can deliver. Products are
+//   committed in groups of half a stage (two k-steps, six products) on two
+//   sets of A registers, so the next group's fragment is loaded and split
+//   while one runs; a group's sum is added into the running sum once it
+//   has run, before the next group's first product overwrites it, and the
+//   other consumer's products keep the tensor cores busy meanwhile.
+// * After a tile's last stage the epilogue runs on the running sum: bias
+//   added (-inf for columns past `cols`, whose products are
 //   zeros), row max over the thread's 64 values and the quad that shares
 //   the row, exp2 of the difference summed into the running (m, s). One
 //   consumer's epilogue overlaps the other's products.
@@ -57,9 +71,9 @@ using namespace la::hopper;
 
 constexpr int kConsumers = 2;                 // warpgroups of 64 rows of h
 constexpr int kBM = 64 * kConsumers;          // rows of h a work item
-constexpr int kBN = 256;                      // columns of w a tile (the wgmma's n)
+constexpr int kBN = 128;                      // columns of w a tile (the wgmma's n)
 constexpr int kBK = 32;                       // feat a stage: 128-byte rows
-constexpr int kStages = 2;                    // stages in the ring
+constexpr int kStages = 4;                    // stages in the ring
 constexpr int kThreads = 128 * (kConsumers + 1);  // warpgroup 0: the producer
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536, "register file");
@@ -80,12 +94,21 @@ __device__ __forceinline__ float tf32_hi(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
 }
 
+// x rounded to the nearest TF32 value (the tensor cores then read it whole)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
 __global__ void split_lo_kernel(const float4* __restrict__ w, float4* __restrict__ lo, size_t n4) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
     const float4 v = w[i];
-    lo[i] = make_float4(v.x - tf32_hi(v.x), v.y - tf32_hi(v.y), v.z - tf32_hi(v.z),
-                        v.w - tf32_hi(v.w));
+    lo[i] = make_float4(__uint_as_float(tf32_rna(v.x - tf32_hi(v.x))),
+                        __uint_as_float(tf32_rna(v.y - tf32_hi(v.y))),
+                        __uint_as_float(tf32_rna(v.z - tf32_hi(v.z))),
+                        __uint_as_float(tf32_rna(v.w - tf32_hi(v.w))));
   }
 }
 
@@ -110,7 +133,7 @@ __device__ __forceinline__ void load_a(uint32_t (&hi)[4], uint32_t (&lo)[4], con
   for (int i = 0; i < 4; ++i) {
     const float top = tf32_hi(v[i]);
     hi[i] = __float_as_uint(top);
-    lo[i] = __float_as_uint(v[i] - top);
+    lo[i] = tf32_rna(v[i] - top);
   }
 }
 
@@ -137,11 +160,17 @@ __device__ __forceinline__ void issue_half(float (&acc)[kBN / 2], uint32_t (&hi)
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int kk = kk0 + j;
-    wgmma_m64n256k8_tf32_rs(acc, lo[j], desc_hi + 2 * kk, accumulate || j > 0);
-    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_lo + 2 * kk, 1);
-    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, 1);
+    wgmma_m64n128k8_tf32_rs(acc, lo[j], desc_hi + 2 * kk, accumulate || j > 0);
+    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_lo + 2 * kk, 1);
+    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, 1);
   }
   wgmma_commit();
+}
+
+// run += acc, rounded to nearest: a group's products into the running sum
+__device__ __forceinline__ void add_group(float (&run)[kBN / 2], const float (&acc)[kBN / 2]) {
+#pragma unroll
+  for (int j = 0; j < kBN / 2; ++j) run[j] = __fadd_rn(run[j], acc[j]);
 }
 
 // One tile's logits (accumulator fragment: rows g and g + 8, columns
@@ -225,7 +254,7 @@ row_lse_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int row = 64 * (wg - 1) + 16 * warp + lane / 4;  // and row + 8
     const int row_off = row * 128 + 4 * (lane % 4), xor16 = 16 * (lane / 4);
-    float acc[kBN / 2];
+    float acc[kBN / 2], run[kBN / 2];  // a group's products; their running sum
     uint32_t a_hi[2][2][4] = {}, a_lo[2][2][4] = {};  // [set][k-step][register]
     int it = 0;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
@@ -234,33 +263,40 @@ row_lse_kernel(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__
       tiles_of(range, ranges, col_tiles, &first, &last);
       float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f};
       for (int tile = first; tile < last; ++tile) {
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) run[j] = 0.f;
         for (int c = 0; c < n_chunks; ++c, ++it) {
           const int st = it % kStages;
           mbar_wait(&sm.full[st], (it / kStages) & 1);
           const char* row_ptr = reinterpret_cast<const char*>(sm.h[st]) + row_off;
           const uint64_t desc_hi = sw128_desc(sm.w_hi[st], 16, 1024);
           const uint64_t desc_lo = sw128_desc(sm.w_lo[st], 16, 1024);
-          load_a(a_hi[0][0], a_lo[0][0], row_ptr, xor16, 0);
-          load_a(a_hi[0][1], a_lo[0][1], row_ptr, xor16, 1);
-          issue_half(acc, a_hi[0], a_lo[0], desc_hi, desc_lo, 0, c > 0);
-          wgmma_wait<1>();  // the previous stage's second half has run
-          fence_a(a_hi[1], a_lo[1]);
-          if (c > 0) {
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&sm.empty[(it - 1) % kStages]);  // it may be refilled
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            // this group's fragment, while the previous group (the other
+            // set of A registers) runs
+            load_a(a_hi[half][0], a_lo[half][0], row_ptr, xor16, 2 * half);
+            load_a(a_hi[half][1], a_lo[half][1], row_ptr, xor16, 2 * half + 1);
+            if (c > 0 || half > 0) {
+              wgmma_wait<0>();  // the previous group has run: acc holds its sum
+              fence_regs(acc);
+              fence_a(a_hi[1 - half], a_lo[1 - half]);
+              add_group(run, acc);
+              if (half == 0) {
+                __syncwarp();
+                if (lane == 0) mbar_arrive(&sm.empty[(it - 1) % kStages]);  // it may be refilled
+              }
+            }
+            issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, 0);  // fresh
           }
-          load_a(a_hi[1][0], a_lo[1][0], row_ptr, xor16, 2);
-          load_a(a_hi[1][1], a_lo[1][1], row_ptr, xor16, 3);
-          issue_half(acc, a_hi[1], a_lo[1], desc_hi, desc_lo, 2, 1);
-          wgmma_wait<1>();  // this stage's first half has run
-          fence_a(a_hi[0], a_lo[0]);
         }
         wgmma_wait<0>();
         fence_regs(acc);
         fence_a(a_hi[1], a_lo[1]);
+        add_group(run, acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(&sm.empty[(it - 1) % kStages]);
-        merge_tile(acc, m, s, bias, tile * kBN, cols, lane);
+        merge_tile(run, m, s, bias, tile * kBN, cols, lane);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -350,5 +386,341 @@ LA_API int la_row_lse(const void* h, const void* w, const void* b, void* out, vo
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   merge_kernel<<<(rows + 255) / 256, 256, 0, s>>>(partial, static_cast<float*>(out), rows,
                                                   ranges);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward of the row log-sum-exp, for the fused training losses
+// (train/losses.py): given lse[r] and the upstream gradient g[r],
+//   p[r, c] = g[r] exp(h[r] . w[c] + b[c] - lse[r]),
+//   dh = p w,  dw = p^T h,  db = sum_r p.
+// The JAX package takes this gradient by autodiff through jax.checkpoint over
+// _chunked_lse's scan (lyricalignment_tpu/ops/viterbi.py:_chunked_lse): no
+// Pallas kernel, so this pair is port work. Like the forward it never writes
+// the [rows, cols] logits or p to device memory: each block recomputes its
+// tile of logits.
+//
+// Bound on H100: operations. At the training shape (rows 3000 = 2 x 1500,
+// feat 768, 21127 or 21128 columns) the pair does four products of
+// 2 x 3000 x 768 x 21128 = 97.4 GFLOP (the logits twice, dh, dw): 389 GFLOP,
+// 5.8 ms on the float32 CUDA cores at 67 TFLOP/s, 2.4 ms as three TF32
+// products each on the tensor cores (the forward's split). This first design runs on
+// the CUDA cores in plain float32 FMA (no tensor cores), deterministic and
+// without atomics:
+// * Both kernels are one body: a block keeps 32 rows of one operand X
+//   resident in shared memory and streams tiles of 32 rows of the other, Y;
+//   for each Y tile it forms S = X Y^T (32 x 32) with the feat split into four
+//   slices over the block's 256 threads (a 4 x 4 micro-tile each, summed in
+//   slice order), turns S into p, and accumulates acc[x, :] += sum_y p[x, y]
+//   Y[y, :] in registers (8 x-rows by 12 feat a thread, 96 floats).
+// * la_row_lse_bwd_dh: X = 32 rows of h, Y = tiles of w. The column tiles are
+//   split into ranges so that the blocks fill the grid's waves; each range
+//   writes its partial dh to scratch and a reduce kernel sums the ranges in
+//   order.
+// * la_row_lse_bwd_dw: X = 32 columns of w, Y = every tile of 32 rows of h;
+//   a block writes its 32 rows of dw and its 32 entries of db.
+// * Rows of 768 floats are padded by 4 in shared memory, so that the
+//   micro-tile loads of 8 neighbouring rows fall in distinct banks.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kBwdTile = 32;        // rows of X and of a Y tile
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMaxFeat = 768;    // 12 floats of acc a thread per x-row
+constexpr int kBwdSlices = 4;       // feat slices of the S product
+constexpr int kBwdMaxRanges = 8;
+
+__host__ __device__ constexpr int bwd_stride(int feat) { return feat + 4; }
+
+size_t bwd_smem_bytes(int feat) {
+  return sizeof(float) * ((size_t)2 * kBwdTile * bwd_stride(feat)        // X, Y
+                          + (size_t)kBwdSlices * kBwdTile * (kBwdTile + 1)  // S partials
+                          + (size_t)kBwdTile * kBwdTile);                 // p^T
+}
+
+// rows [r0, r0 + 32) of src [n, feat] into dst (padded rows), zeros past n
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0, int n,
+                                          int feat) {
+  const int f4 = feat / 4, stride = bwd_stride(feat);
+  for (int i = threadIdx.x; i < kBwdTile * f4; i += kBwdThreads) {
+    const int r = i / f4, c = 4 * (i % f4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * feat + c));
+    *reinterpret_cast<float4*>(dst + r * stride + c) = v;
+  }
+}
+
+// S = X Y^T of the resident tile xs and the streamed tile ys (32 x 32,
+// padded rows) into sp as four feat-slice partials [slice][x][y] (y padded
+// to 33): a 4 x 4 micro-tile a thread (x rows xa + 8 i, y rows ya + 8 j, so
+// the float4 loads of 8 neighbouring rows fall in distinct banks); ends on a
+// barrier. The caller sums the slices in order.
+__device__ __forceinline__ void tile_scores(const float* xs, const float* ys, float* sp,
+                                            int feat) {
+  const int tid = threadIdx.x, stride = bwd_stride(feat);
+  const int ks = tid / 64, xa = (tid % 64) / 8, ya = tid % 8;
+  const int slice = feat / kBwdSlices, k_lo = ks * slice;
+  float s[4][4] = {};
+  for (int k = k_lo; k < k_lo + slice; k += 4) {
+    float4 xv[4], yv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xv[i] = *reinterpret_cast<const float4*>(xs + (xa + 8 * i) * stride + k);
+      yv[i] = *reinterpret_cast<const float4*>(ys + (ya + 8 * i) * stride + k);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(xv[i].x, yv[j].x, s[i][j]);
+        s[i][j] = fmaf(xv[i].y, yv[j].y, s[i][j]);
+        s[i][j] = fmaf(xv[i].z, yv[j].z, s[i][j]);
+        s[i][j] = fmaf(xv[i].w, yv[j].w, s[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sp[(ks * kBwdTile + xa + 8 * i) * (kBwdTile + 1) + ya + 8 * j] = s[i][j];
+  __syncthreads();
+}
+
+// S[x][y] with the slices summed in order
+__device__ __forceinline__ float tile_score(const float* sp, int x, int y) {
+  float sum = sp[x * (kBwdTile + 1) + y];
+#pragma unroll
+  for (int q = 1; q < kBwdSlices; ++q) sum += sp[(q * kBwdTile + x) * (kBwdTile + 1) + y];
+  return sum;
+}
+
+// kXRows: X holds rows of h (the dh kernel) rather than columns of w (dw).
+// Returns after acc holds sum over the Y tiles [y_first, y_last) of p Y, and
+// (dw kernel) db_acc, on threads < 32, the sum of p over those tiles for
+// x-row threadIdx.x.
+template <bool kXRows>
+__device__ void bwd_body(const float* __restrict__ xsrc, const float* __restrict__ ysrc,
+                         const float* __restrict__ bias, const float* __restrict__ lse,
+                         const float* __restrict__ g, int x0, int x_n, int y_first, int y_last,
+                         int y_n, int feat, float (&acc)[8][3][4], float& db_acc) {
+  extern __shared__ float4 bwd_smem4[];
+  float* smem = reinterpret_cast<float*>(bwd_smem4);
+  const int stride = bwd_stride(feat);
+  float* xs = smem;
+  float* ys = xs + kBwdTile * stride;
+  float* sp = ys + kBwdTile * stride;                   // [slice][x][y], y padded to 33
+  float* pt = sp + kBwdSlices * kBwdTile * (kBwdTile + 1);  // p^T [y][x]
+  const int tid = threadIdx.x;
+  // the accumulator: x rows 8 xb .. 8 xb + 7, feat 4 fb + 256 j
+  const int xb = tid / 64, fb = tid % 64;
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  db_acc = 0.f;
+
+  load_rows(xs, xsrc, x0, x_n, feat);
+  for (int yt = y_first; yt < y_last; ++yt) {
+    const int y0 = yt * kBwdTile;
+    __syncthreads();  // the previous tile's ys and pt are no longer read
+    load_rows(ys, ysrc, y0, y_n, feat);
+    __syncthreads();
+
+    tile_scores(xs, ys, sp, feat);
+
+    // p = g exp(S + b - lse), the slices summed in order; zero past the extents
+    for (int e = tid; e < kBwdTile * kBwdTile; e += kBwdThreads) {
+      const int x = e / kBwdTile, y = e % kBwdTile;
+      float v = 0.f;
+      if (x0 + x < x_n && y0 + y < y_n) {
+        const float sum = tile_score(sp, x, y);
+        const int r = kXRows ? x0 + x : y0 + y, c = kXRows ? y0 + y : x0 + x;
+        v = __ldg(g + r) * expf(sum + __ldg(bias + c) - __ldg(lse + r));
+      }
+      pt[y * kBwdTile + x] = v;
+    }
+    __syncthreads();
+    if (!kXRows && tid < kBwdTile) {
+      for (int y = 0; y < kBwdTile; ++y) db_acc += pt[y * kBwdTile + tid];
+    }
+
+    // acc[x, f] += sum_y p[x, y] Y[y, f]
+    for (int y = 0; y < kBwdTile; ++y) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pt + y * kBwdTile + 8 * xb);
+      const float4 p1 = *reinterpret_cast<const float4*>(pt + y * kBwdTile + 8 * xb + 4);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int f = 4 * fb + 256 * j;
+        if (f < feat) {
+          const float4 yv = *reinterpret_cast<const float4*>(ys + y * stride + f);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][j][0] = fmaf(pv[i], yv.x, acc[i][j][0]);
+            acc[i][j][1] = fmaf(pv[i], yv.y, acc[i][j][1]);
+            acc[i][j][2] = fmaf(pv[i], yv.z, acc[i][j][2]);
+            acc[i][j][3] = fmaf(pv[i], yv.w, acc[i][j][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// acc rows 8 xb + i of the block's x tile into out [x_n, feat] (rows past
+// x_n dropped)
+__device__ __forceinline__ void store_acc(float* __restrict__ out, const float (&acc)[8][3][4],
+                                          int x0, int x_n, int feat) {
+  const int xb = threadIdx.x / 64, fb = threadIdx.x % 64;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int x = x0 + 8 * xb + i;
+    if (x >= x_n) continue;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int f = 4 * fb + 256 * j;
+      if (f < feat)
+        *reinterpret_cast<float4*>(out + (size_t)x * feat + f) =
+            make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+// grid (row tiles, ranges): partial dh of range q into part[q] (or dh itself
+// when there is one range)
+__global__ void __launch_bounds__(kBwdThreads, 1)
+row_lse_bwd_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                      const float* __restrict__ b, const float* __restrict__ lse,
+                      const float* __restrict__ g, float* __restrict__ part, int rows, int feat,
+                      int cols) {
+  const int col_tiles = (cols + kBwdTile - 1) / kBwdTile, q = blockIdx.y, ranges = gridDim.y;
+  const int first = (int)((long long)q * col_tiles / ranges);
+  const int last = (int)((long long)(q + 1) * col_tiles / ranges);
+  float acc[8][3][4], db_unused;
+  bwd_body<true>(h, w, b, lse, g, blockIdx.x * kBwdTile, rows, first, last, cols, feat, acc,
+                 db_unused);
+  store_acc(part + (size_t)q * rows * feat, acc, blockIdx.x * kBwdTile, rows, feat);
+}
+
+// dh = sum over the ranges of part, in the ranges' order
+__global__ void bwd_reduce_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                                  size_t n4, int ranges) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
+    float4 s = part[i];
+    for (int q = 1; q < ranges; ++q) {
+      const float4 v = part[(size_t)q * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
+  }
+}
+
+// grid (column tiles): rows of dw and entries of db
+__global__ void __launch_bounds__(kBwdThreads, 1)
+row_lse_bwd_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                      const float* __restrict__ b, const float* __restrict__ lse,
+                      const float* __restrict__ g, float* __restrict__ dw,
+                      float* __restrict__ db, int rows, int feat, int cols) {
+  const int row_tiles = (rows + kBwdTile - 1) / kBwdTile, c0 = blockIdx.x * kBwdTile;
+  float acc[8][3][4], db_acc;
+  bwd_body<false>(w, h, b, lse, g, c0, cols, 0, row_tiles, rows, feat, acc, db_acc);
+  store_acc(dw, acc, c0, cols, feat);
+  if (threadIdx.x < kBwdTile && c0 + threadIdx.x < cols) db[c0 + threadIdx.x] = db_acc;
+}
+
+// column ranges of the dh kernel: the fewest waves x tiles a block, the
+// fewest ranges among equals (one block an SM: its shared memory)
+int plan_bwd_ranges(int row_tiles, int col_tiles, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int r = 1; r <= kBwdMaxRanges && r <= col_tiles; ++r) {
+    const long long blocks = (long long)row_tiles * r;
+    const long long cost = ((blocks + sms - 1) / sms) * ((col_tiles + r - 1) / r);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = r;
+    }
+  }
+  return best;
+}
+
+cudaError_t bwd_prepare(int feat, int* sms) {
+  if (feat <= 0 || feat % 16 || feat > kBwdMaxFeat) return cudaErrorInvalidValue;
+  cudaError_t err;
+  int device;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int bytes = (int)bwd_smem_bytes(feat);
+  if ((err = cudaFuncSetAttribute(row_lse_bwd_dh_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+      cudaSuccess)
+    return err;
+  return cudaFuncSetAttribute(row_lse_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace
+
+// floats of scratch la_row_lse_bwd_dh needs: the ranges' partial dh
+LA_API long long la_row_lse_bwd_scratch_floats(int rows, int feat, int cols) {
+  (void)cols;
+  return (long long)kBwdMaxRanges * rows * feat;
+}
+
+// h f32[rows, feat]; w f32 rows [cols, feat] and b f32[cols] point at the
+// slice's first column; lse, g f32[rows]; dh f32[rows, feat]; scratch f32 of
+// la_row_lse_bwd_scratch_floats. feat % 16 == 0, feat <= 768, 16-byte
+// aligned pointers (the wrapper checks).
+LA_API int la_row_lse_bwd_dh(const void* h, const void* w, const void* b, const void* lse,
+                             const void* g, void* dh, void* scratch, int rows, int feat,
+                             int cols, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  int sms;
+  cudaError_t err = bwd_prepare(feat, &sms);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (rows + kBwdTile - 1) / kBwdTile;
+  const int col_tiles = (cols + kBwdTile - 1) / kBwdTile;
+  const int ranges = plan_bwd_ranges(row_tiles, col_tiles, sms);
+  float* part = ranges == 1 ? static_cast<float*>(dh) : static_cast<float*>(scratch);
+  row_lse_bwd_dh_kernel<<<dim3(row_tiles, ranges), kBwdThreads, bwd_smem_bytes(feat), s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<const float*>(lse), static_cast<const float*>(g), part, rows, feat, cols);
+  if ((err = cudaGetLastError()) != cudaSuccess || ranges == 1) return err;
+  const size_t n4 = (size_t)rows * feat / 4;
+  const size_t blocks = (n4 + 255) / 256;
+  bwd_reduce_kernel<<<(unsigned)(blocks < 8u * sms ? blocks : 8u * sms), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(part), static_cast<float4*>(dh), n4, ranges);
+  return cudaGetLastError();
+}
+
+// as la_row_lse_bwd_dh; dw f32[cols, feat], db f32[cols]
+LA_API int la_row_lse_bwd_dw(const void* h, const void* w, const void* b, const void* lse,
+                             const void* g, void* dw, void* db, int rows, int feat, int cols,
+                             void* stream) {
+  if (cols <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  int sms;
+  cudaError_t err = bwd_prepare(feat, &sms);
+  if (err != cudaSuccess) return err;
+  if (rows <= 0) {  // no rows: the gradients are zero
+    if ((err = cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)cols * feat, s)) != cudaSuccess)
+      return err;
+    return cudaMemsetAsync(db, 0, sizeof(float) * (size_t)cols, s);
+  }
+  row_lse_bwd_dw_kernel<<<(cols + kBwdTile - 1) / kBwdTile, kBwdThreads, bwd_smem_bytes(feat),
+                          s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<float*>(dw),
+      static_cast<float*>(db), rows, feat, cols);
   return cudaGetLastError();
 }

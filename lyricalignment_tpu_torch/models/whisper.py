@@ -19,6 +19,15 @@ default, as the JAX training path runs the library flash kernel, or
 cross-attention are plain matmuls, as JAX computes them with einsum outside
 any kernel; its unembedding runs in float32.
 
+Two inference options quantise to int8 as the JAX model does
+(``whisper.py:60-90,244-331,582-645``): ``int8_encoder`` runs the encoder
+blocks' q/k/v/out and MLP linears W8A8 (per-token activation scales,
+per-output-channel weight scales, an int8 x int8 -> int32 product through
+``torch._int_mm``), on weights made int8-resident by :func:`int8_resident`
+or quantised per call; ``int8_cross_kv`` keeps the decode cache's cross K
+(scale per key over Dh) and V (scale per head and channel over T) in int8
+with both cross contractions on integer values.
+
 KV-cached decoding (``init_decode_cache``, ``prime_decode_cache``,
 ``decode_step``) keeps the JAX split cache: cross K/V and the prompt's K/V
 one row per sample, the generated K/V one row per beam row, preallocated at
@@ -29,8 +38,9 @@ so a step reads nothing back to the host.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,8 +71,13 @@ class WhisperConfig:
     # encoder self-attention through onepass_self_attention (key bias) rather
     # than self_attention; the same kernels either way, off as in JAX
     onepass_encoder: bool = False
-    # int8 cross-attention K/V in the decode cache: not ported
-    # (init_decode_cache raises; ROADMAP.md queue 1, int8)
+    # W8A8 dynamic int8 quantisation of the encoder blocks' matmuls (q/k/v/out
+    # and both MLP linears); inference only (round has no gradient), the
+    # stem, LayerNorms, attention kernels and decoder keep compute_dtype
+    int8_encoder: bool = False
+    # int8 cross-attention K/V in the decode cache (K per key over Dh, V per
+    # head and channel over T) with integer-valued cross contractions;
+    # inference only
     int8_cross_kv: bool = False
 
     @property
@@ -118,6 +133,74 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
+class Int8Linear(nn.Module):
+    """An encoder linear made int8-resident (:func:`int8_resident`): the
+    int8 weight [out, in], its per-output-channel scale f32[out] and the
+    bias, exactly the pair :func:`_linear_int8` would derive per call."""
+
+    def __init__(self, weight_q: torch.Tensor, weight_s: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("weight_s", weight_s)
+        self.register_buffer("bias", None if bias is None else bias.detach())
+
+
+def _quantize_int8(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 quantisation along ``dim``: (q int8, scale f32
+    with ``dim`` kept as 1), q * scale ~= x; round half to even, as
+    ``jnp.round``."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=dim, keepdim=True).clamp(min=1e-12) / 127.0
+    return torch.clamp(torch.round(x32 / scale), -127.0, 127.0).to(torch.int8), scale
+
+
+def _int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a int8[M, K] @ b_t int8[N, K].T -> int32[M, N] by ``torch._int_mm``,
+    with the second operand the transpose of a contiguous [N, K] tensor (the
+    layout cuBLASLt takes for an int8 product). On the card it needs
+    M > 16 and K, N multiples of 8: the encoder's M is B x 1500."""
+    return torch._int_mm(a.contiguous(), b_t.contiguous().t())
+
+
+def _linear_int8(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """W8A8 linear (JAX ``_linear_int8``): x quantised per token, the weight
+    per output channel (``Int8Linear``'s resident pair, else quantised
+    here), the int8 x int8 -> int32 product, then ``y * (xs * ws) + b`` in
+    float32, cast to x's dtype. Inference only."""
+    xq, xs = _quantize_int8(x, -1)                       # [..., in], [..., 1]
+    if isinstance(lin, Int8Linear):
+        wq, ws = lin.weight_q, lin.weight_s
+    else:
+        wq, ws = _quantize_int8(lin.weight, 1)
+        ws = ws[:, 0]
+    y = _int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*x.shape[:-1], wq.shape[0])
+    y = y.float() * (xs * ws)
+    if lin.bias is not None:
+        y = y + lin.bias.float()
+    return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _full_float32_matmul():
+    """float32 matmuls without TF32 inside the block (restored after)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An einsum of two int8 tensors as a float32 einsum of their integer
+    values, TF32 off (PyTorch has no batched int8 product). Exact where every
+    partial sum stays below 2^24: always for the Dh = 64 contraction
+    (64 x 127^2), and to 1 ulp at worst for the T = 1500 one."""
+    with _full_float32_matmul():
+        return torch.einsum(equation, a.float(), b.float())
+
+
 def _split_heads(y: torch.Tensor, n_head: int) -> torch.Tensor:
     b, t, d = y.shape
     return y.view(b, t, n_head, d // n_head)
@@ -137,19 +220,21 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
-    def self_attention(self, x: torch.Tensor,
-                       key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def self_attention(self, x: torch.Tensor, key_bias: Optional[torch.Tensor] = None,
+                       int8: bool = False) -> torch.Tensor:
         """Encoder self-attention of x [B, T, D] through the attention
         kernels: ``self_attention``, or ``onepass_self_attention`` when a
-        ``key_bias`` [1, T] is given."""
+        ``key_bias`` [1, T] is given. ``int8`` runs the four projections
+        W8A8."""
         b, t, d = x.shape
+        lin = _linear_int8 if int8 else _linear
         scale = (d // self.n_head) ** -0.25
-        q = _split_heads(_linear(self.query, x), self.n_head) * scale
-        k = _split_heads(_linear(self.key, x), self.n_head) * scale
-        v = _split_heads(_linear(self.value, x), self.n_head).contiguous()
+        q = _split_heads(lin(self.query, x), self.n_head) * scale
+        k = _split_heads(lin(self.key, x), self.n_head) * scale
+        v = _split_heads(lin(self.value, x), self.n_head).contiguous()
         out = (self_attention(q, k, v) if key_bias is None
                else onepass_self_attention(q, k, v, key_bias))
-        return _linear(self.out, out.reshape(b, t, d))
+        return lin(self.out, out.reshape(b, t, d))
 
     def attend(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -185,14 +270,15 @@ class ResidualAttentionBlock(nn.Module):
             nn.Linear(4 * n_state, n_state))
         self.mlp_ln = nn.LayerNorm(n_state)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        lin = _linear_int8 if int8 else _linear
         h = _layer_norm(self.mlp_ln, x)
-        return x + _linear(self.mlp[2], self.mlp[1](_linear(self.mlp[0], h)))
+        return x + lin(self.mlp[2], self.mlp[1](lin(self.mlp[0], h)))
 
-    def encoder_forward(self, x: torch.Tensor,
-                        key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias)
-        return self._mlp(x)
+    def encoder_forward(self, x: torch.Tensor, key_bias: Optional[torch.Tensor] = None,
+                        int8: bool = False) -> torch.Tensor:
+        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias, int8)
+        return self._mlp(x, int8)
 
     def decoder_forward(self, x: torch.Tensor, xa: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
@@ -245,7 +331,7 @@ class AudioEncoder(nn.Module):
         if self.cfg.onepass_encoder:
             key_bias = torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x = _run_block(block.encoder_forward, remat, x, key_bias)
+            x = _run_block(block.encoder_forward, remat, x, key_bias, self.cfg.int8_encoder)
         return _layer_norm(self.ln_post, x)
 
 
@@ -312,6 +398,23 @@ def bf16_resident(whisper: Whisper) -> Whisper:
     return whisper
 
 
+@torch.no_grad()
+def int8_resident(whisper: Whisper) -> Whisper:
+    """Quantise the encoder blocks' linears (q/k/v/out and both MLP layers)
+    once, in place: each becomes an :class:`Int8Linear` holding the exact
+    (q, scale) pair :func:`_linear_int8` would derive per call (JAX
+    ``int8_resident_params``). Apply after :func:`bf16_resident`, so the
+    quantisation grid is the one the dynamic path sees; meaningful only with
+    ``WhisperConfig.int8_encoder``. The stem, LayerNorms and decoder stay."""
+    for block in whisper.encoder.blocks:
+        for parent, name in ((block.attn, "query"), (block.attn, "key"), (block.attn, "value"),
+                             (block.attn, "out"), (block.mlp, "0"), (block.mlp, "2")):
+            lin = getattr(parent, name)
+            wq, ws = _quantize_int8(lin.weight, 1)
+            setattr(parent, name, Int8Linear(wq, ws[:, 0], lin.bias))
+    return whisper
+
+
 # ---------------------------------------------------------------------------
 # KV-cached incremental decoding
 # ---------------------------------------------------------------------------
@@ -334,10 +437,12 @@ def init_decode_cache(model: Whisper, cfg: WhisperConfig, audio_features: torch.
       row, written at ``step`` by :func:`decode_step`;
     - ``step`` (int64 scalar tensor) and ``length`` (int64 [B], the valid
       prompt length a sample; zero until :func:`prime_decode_cache`).
+
+    Under ``cfg.int8_cross_kv`` the cross K/V are int8 with their scales
+    beside them: ``cross_k_s`` [B, T, H, 1] (per key vector, over Dh; it
+    scales the key's whole logit column) and ``cross_v_s`` [B, 1, H, Dh]
+    (per head and channel, over T; it factors out of the weights @ V sum).
     """
-    if cfg.int8_cross_kv:
-        raise NotImplementedError(
-            "int8 cross-attention K/V is not ported (ROADMAP.md queue 1, int8)")
     dtype = cfg.compute_dtype
     b = audio_features.shape[0]
     dev = audio_features.device
@@ -346,9 +451,17 @@ def init_decode_cache(model: Whisper, cfg: WhisperConfig, audio_features: torch.
     cache = {"blocks": [], "step": torch.zeros((), dtype=torch.int64, device=dev),
              "length": torch.zeros((b,), dtype=torch.int64, device=dev)}
     for block in model.decoder.blocks:
+        ck = _split_heads(_linear(block.cross_attn.key, xa), cfg.n_text_head)
+        cv = _split_heads(_linear(block.cross_attn.value, xa), cfg.n_text_head)
+        extra = {}
+        if cfg.int8_cross_kv:
+            ck, ck_s = _quantize_int8(ck, -1)
+            cv, cv_s = _quantize_int8(cv, 1)
+            extra = {"cross_k_s": ck_s, "cross_v_s": cv_s}
         cache["blocks"].append({
-            "cross_k": _split_heads(_linear(block.cross_attn.key, xa), cfg.n_text_head),
-            "cross_v": _split_heads(_linear(block.cross_attn.value, xa), cfg.n_text_head),
+            **extra,
+            "cross_k": ck,
+            "cross_v": cv,
             "prompt_k": torch.zeros((b, prompt_len, cfg.n_text_head, d_h), dtype=dtype, device=dev),
             "prompt_v": torch.zeros((b, prompt_len, cfg.n_text_head, d_h), dtype=dtype, device=dev),
             "gen_k": torch.zeros((b * beam_size, max_new_tokens, cfg.n_text_head, d_h),
@@ -359,18 +472,37 @@ def init_decode_cache(model: Whisper, cfg: WhisperConfig, audio_features: torch.
     return cache
 
 
-def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, ck: torch.Tensor,
-                             cv: torch.Tensor, n_head: int) -> torch.Tensor:
-    """Cross-attention of x [B*g, S, D] (post-LN) to the precomputed K/V
-    [B, T, H, Dh], where g query rows (beams) share each audio row."""
+def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, bc: Dict,
+                             n_head: int) -> torch.Tensor:
+    """Cross-attention of x [B*g, S, D] (post-LN) to a cache block's
+    precomputed K/V [B, T, H, Dh], where g query rows (beams) share each
+    audio row.
+
+    With int8 K/V (``cross_k_s``/``cross_v_s`` in the block) both
+    contractions run on integer values: the query quantised per query
+    vector (its scale and K's per-key scales multiply the logits), the
+    float32 softmax weights per (query, head) row (V's per-channel scales
+    factor out of the weights @ V sum). They run as float32 einsums of those
+    values (:func:`_int_einsum`), equal to JAX's int32 products, so the cache
+    holds half the bytes but each step reads them widened to float32."""
+    ck, cv = bc["cross_k"], bc["cross_v"]
     bg, s, d = x.shape
     b = ck.shape[0]
     g = bg // b
     scale = (d // n_head) ** -0.25
     q = _split_heads(_linear(p.query, x), n_head).reshape(b, g, s, n_head, d // n_head)
-    logits = torch.einsum("bgshd,bthd->bgsht", q * scale, ck * scale)
-    w = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
-    out = torch.einsum("bgsht,bthd->bgshd", w, cv)
+    if "cross_k_s" in bc:
+        qq, qs = _quantize_int8(q, -1)                                # qs [b, g, s, h, 1]
+        logits = _int_einsum("bgshd,bthd->bgsht", qq, ck)
+        ks = bc["cross_k_s"][..., 0].permute(0, 2, 1)                 # [b, h, t]
+        logits = logits * qs * ks[:, None, None] * (scale * scale)
+        wq, ws = _quantize_int8(torch.softmax(logits, -1), -1)        # ws [b, g, s, h, 1]
+        out = _int_einsum("bgsht,bthd->bgshd", wq, cv)
+        out = (out * ws * bc["cross_v_s"][:, None]).to(x.dtype)
+    else:
+        logits = torch.einsum("bgshd,bthd->bgsht", q * scale, ck * scale)
+        w = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
+        out = torch.einsum("bgsht,bthd->bgshd", w, cv)
     return _linear(p.out, out.reshape(bg, s, d))
 
 
@@ -413,7 +545,7 @@ def prime_decode_cache(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor,
         attn_out = torch.einsum("bhqk,bkhd->bqhd", w, v)
         x = x + _linear(block.attn.out, attn_out.reshape(x.shape))
         x = x + _grouped_cross_attention(block.cross_attn, _layer_norm(block.cross_attn_ln, x),
-                                         bc["cross_k"], bc["cross_v"], n_head)
+                                         bc, n_head)
         x = block._mlp(x)
         bc["prompt_k"].copy_(k)
         bc["prompt_v"].copy_(v)
@@ -478,7 +610,7 @@ def decode_step(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor, cache:
         attn_out = out_p.reshape(r, n_head, -1) + out_g                     # [R, H, Dh]
         x = x + _linear(block.attn.out, attn_out.reshape(r, 1, -1))
         x = x + _grouped_cross_attention(block.cross_attn, _layer_norm(block.cross_attn_ln, x),
-                                         bc["cross_k"], bc["cross_v"], n_head)
+                                         bc, n_head)
         x = block._mlp(x)
 
     logits = _unembed(dec, _layer_norm(dec.ln, x))

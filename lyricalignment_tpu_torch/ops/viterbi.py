@@ -6,7 +6,10 @@ Port of ``lyricalignment_tpu/ops/viterbi.py``. Two kernels carry it:
 * the streaming row log-sum-exp of the classifier logits (``csrc/lse.cu``,
   counterpart of the Pallas ``_lse_kernel``), so the fused path never writes
   the [B, T, C] logits; :func:`row_lse_plain` is the chunked online form of
-  ``_chunked_lse``;
+  ``_chunked_lse``. Its gradient, for the fused training losses, is a pair
+  of backward kernels in the same file that recompute the logits a tile at
+  a time (the counterpart of ``jax.checkpoint`` over ``_chunked_lse``'s
+  scan); :func:`row_lse_bwd_plain` is the chunked plain version of it;
 * the DP with backtrace (``csrc/viterbi.cu``, counterpart of the Pallas
   ``viterbi_pallas._kernel``) with ``_viterbi_dp``'s exact transition and
   tie-breaking rules (`viterbi.py:13-18`); :func:`viterbi_dp_plain` is the
@@ -76,10 +79,7 @@ def row_lse_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return m + torch.log(s)
 
 
-def row_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """log sum_c exp(h @ w.T + b) per row, without materialising the logits:
-    the CUDA kernel for CUDA tensors, :func:`row_lse_plain` for CPU ones.
-    ``w`` may be a row slice of a larger weight (the CTC syllable columns)."""
+def _row_lse_forward(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not h.is_cuda:
         kernels.plain_or_raise("row_lse", h)
         return row_lse_plain(h, w, b)
@@ -104,17 +104,123 @@ def row_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def row_lse_bwd_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lse: torch.Tensor,
+                      g: torch.Tensor, chunk: int = LSE_CHUNK):
+    """Plain version of the row LSE's gradient, recomputing the logits a
+    column chunk at a time: p = g exp(h @ w.T + b - lse) per chunk, then
+    dh = p @ w, dw = p.T @ h, db = sum_rows p. h [N, F], w [C, F], b [C],
+    lse and g [N] -> (dh [N, F], dw [C, F], db [C]), in h's dtype."""
+    dh = torch.zeros_like(h)
+    dw = torch.empty_like(w, dtype=h.dtype)
+    db = torch.empty_like(b, dtype=h.dtype)
+    for c0 in range(0, w.shape[0], chunk):
+        wc = w[c0:c0 + chunk].to(h.dtype)
+        p = torch.exp(h @ wc.T + b[c0:c0 + chunk].to(h.dtype) - lse[:, None]) * g[:, None]
+        dh += p @ wc
+        dw[c0:c0 + chunk] = p.T @ h
+        db[c0:c0 + chunk] = p.sum(dim=0)
+    return dh, dw, db
+
+
+def row_lse_bwd_dh(h, w, b, lse, g) -> torch.Tensor:
+    """dh of :func:`row_lse_bwd_plain`: the CUDA kernel ``la_row_lse_bwd_dh``
+    for CUDA tensors, the plain version for CPU ones."""
+    if not h.is_cuda:
+        kernels.plain_or_raise("row_lse_bwd", h)
+        return row_lse_bwd_plain(h, w, b, lse, g)[0]
+    rows, feat, cols = _check_bwd(h, w, b, lse, g)
+    dh = torch.empty_like(h)
+    if rows:
+        scratch = torch.empty(
+            (kernels.library().la_row_lse_bwd_scratch_floats(rows, feat, cols),),
+            dtype=torch.float32, device=h.device)
+        kernels.launch("la_row_lse_bwd_dh", h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                       lse.data_ptr(), g.data_ptr(), dh.data_ptr(), scratch.data_ptr(),
+                       rows, feat, cols, kernels.stream_of(h))
+    return dh
+
+
+def row_lse_bwd_dw(h, w, b, lse, g):
+    """(dw, db) of :func:`row_lse_bwd_plain`: the CUDA kernel
+    ``la_row_lse_bwd_dw`` for CUDA tensors, the plain version for CPU ones."""
+    if not h.is_cuda:
+        kernels.plain_or_raise("row_lse_bwd", h)
+        return row_lse_bwd_plain(h, w, b, lse, g)[1:]
+    rows, feat, cols = _check_bwd(h, w, b, lse, g)
+    dw = torch.empty((cols, feat), dtype=torch.float32, device=h.device)
+    db = torch.empty((cols,), dtype=torch.float32, device=h.device)
+    kernels.launch("la_row_lse_bwd_dw", h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                   lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                   rows, feat, cols, kernels.stream_of(h))
+    return dw, db
+
+
+def _check_bwd(h, w, b, lse, g):
+    """The backward kernels' conditions."""
+    for name, t, ndim in (("h", h, 2), ("w", w, 2), ("b", b, 1), ("lse", lse, 1),
+                          ("g", g, 1)):
+        kernels.check_cuda(f"row_lse_bwd {name}", t, torch.float32, ndim)
+    rows, feat = h.shape
+    cols = w.shape[0]
+    if (w.shape[1] != feat or b.shape[0] != cols or cols == 0
+            or any(t.shape[0] != rows for t in (lse, g))):
+        raise ValueError("row_lse_bwd: shapes of h, w, b, lse, g do not agree")
+    if feat % 16 or feat > 768 or any(t.data_ptr() % 16 for t in (h, w)):
+        raise ValueError("row_lse_bwd: needs feat % 16 == 0, feat <= 768 and 16-byte "
+                         "aligned h, w")
+    return rows, feat, cols
+
+
+class _RowLSE(torch.autograd.Function):
+    """The row LSE with its gradient: the forward saves (h, w, b, lse); the
+    backward recomputes the logits (the backward kernels, or
+    :func:`row_lse_bwd_plain` on the CPU), so no [N, C] tensor is kept."""
+
+    @staticmethod
+    def forward(ctx, h, w, b):
+        lse = _row_lse_forward(h, w, b)
+        ctx.save_for_backward(h, w, b, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, lse = ctx.saved_tensors
+        g = g.contiguous()
+        dh = dw = db = None
+        if not h.is_cuda:
+            dh, dw, db = row_lse_bwd_plain(h, w, b, lse, g)
+        else:
+            if ctx.needs_input_grad[0]:
+                dh = row_lse_bwd_dh(h, w, b, lse, g)
+            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+                dw, db = row_lse_bwd_dw(h, w, b, lse, g)
+        return dh, dw, db
+
+
+def row_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """log sum_c exp(h @ w.T + b) per row, without materialising the logits,
+    and its gradient: the kernel ``la_row_lse`` forward and the backward
+    pair for CUDA tensors, :func:`row_lse_plain` and
+    :func:`row_lse_bwd_plain` for CPU ones. ``w`` may be a row slice of a
+    larger weight (the CTC syllable columns in serving; ``fc.weight[1:vocab]``
+    of the CE, ``[:vocab]`` of the CTC in training); the gradient reaches
+    the slice's rows only. Under ``no_grad`` nothing is saved."""
+    return _RowLSE.apply(h, w, b)
+
+
 # ---------------------------------------------------------------------------
 # Fused emissions: only the label columns are materialised
 # ---------------------------------------------------------------------------
 
-def _gather_label_logits(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                         labels: torch.Tensor) -> torch.Tensor:
+def gather_label_logits(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
     """Per-position label logits [B, T, L] from the gathered weight rows."""
     return torch.einsum("btf,blf->btl", h, w[labels]) + b[labels][:, None, :]
 
 
-def _class_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def class_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`row_lse` of h [B, T, F] -> [B, T]: the class normaliser of the
+    fused emissions and of the fused training losses."""
     bdim, tdim, fdim = h.shape
     return row_lse(h.reshape(bdim * tdim, fdim), w, b).reshape(bdim, tdim)
 
@@ -124,8 +230,8 @@ def ce_emissions_fused(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """``ce_emissions(h @ w.T + b)`` gathered to label positions without the
     [B, T, C] logits. h f32[B, T, F]; w [C, F], b [C] (the head's fc).
     Returns (label log-prob [B, T, L], silence [B, T])."""
-    lse = _class_lse(h, w, b)
-    gathered = _gather_label_logits(h, w, b, labels)
+    lse = class_lse(h, w, b)
+    gathered = gather_label_logits(h, w, b, labels)
     sil = h @ w[0] + b[0]
     lab_lp = torch.clamp(gathered - lse[..., None], min=CLIP_MIN)
     sil_lp = torch.clamp(sil - lse, min=CLIP_MIN)
@@ -137,8 +243,8 @@ def ctc_emissions_fused(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """``ctc_emissions(h @ w.T + b)`` gathered to label positions: the
     normaliser runs over the syllable columns 1..C-2 only; label l reads
     column l."""
-    lse = _class_lse(h, w[1:-1], b[1:-1])
-    gathered = _gather_label_logits(h, w, b, labels)
+    lse = class_lse(h, w[1:-1], b[1:-1])
+    gathered = gather_label_logits(h, w, b, labels)
     sil_logit = h @ w[-1] + b[-1]
     log_sil = -F.softplus(-sil_logit)
     log_voiced = -F.softplus(sil_logit)

@@ -15,8 +15,14 @@ The reference splits each batch into a "multitask" and a "transcript-only"
 sub-batch and takes each loss as a mean within its sub-batch
 (`train_multitask.py:188-211,250-319`). With fixed shapes the split is a
 per-sample mask: each ``*_grouped`` function reproduces one group mean, and
-an empty group contributes 0. The fused classifier->loss variants
-(`losses.py:150-292`) are not ported yet.
+an empty group contributes 0.
+
+The fused classifier->loss variants (`losses.py:138-292`) take the head's
+pre-classifier hidden and its fc instead of the [B, T, C] logits: the class
+normaliser is the streaming row LSE (``ops.viterbi.row_lse``, with its
+backward kernels), only the label columns are gathered, and the CTC alpha
+recursion runs on the reduced [T, blank + N] emissions
+(``ops.ctc.ctc_reduced_nll``), with the JAX function's sentinel arithmetic.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from lyricalignment_tpu_torch.ops.ctc import ctc_reduced_nll
+from lyricalignment_tpu_torch.ops.viterbi import class_lse, gather_label_logits
 
 IGNORE_ID = -100
 # optax.ctc_loss's stand-in for log(0)
@@ -209,6 +219,76 @@ def ctc_loss(logits: torch.Tensor, labels: torch.Tensor,
              frames_needed: np.ndarray) -> torch.Tensor:
     all_samples = torch.ones(logits.shape[0], dtype=torch.bool, device=logits.device)
     return ctc_loss_grouped(logits, labels, all_samples, frames_needed)
+
+
+# ---------------------------------------------------------------------------
+# Fused classifier->loss: the hidden and the fc instead of the logits
+# ---------------------------------------------------------------------------
+
+def _frame_logits(h: torch.Tensor, fc: nn.Linear, cols: torch.Tensor) -> torch.Tensor:
+    """The logit of one fc column a frame (cols int[B, T]) from gathered
+    weight rows -> [B, T]."""
+    return (h * fc.weight[cols]).sum(dim=-1) + fc.bias[cols]
+
+
+def frame_ce_loss_grouped_fused(h: torch.Tensor, fc: nn.Linear, frame_labels: torch.Tensor,
+                                sample_mask: torch.Tensor, with_silence_head: bool = False,
+                                vocab_size: int = 21128) -> torch.Tensor:
+    """``frame_ce_loss_grouped(fc(h), ...)`` without the logits. h f32[B, T,
+    F] (the head's pre-classifier hidden), fc the head's Linear [C, F]."""
+    h = h.contiguous()
+    frame_labels = _reconcile_label_length(frame_labels, h.shape[1])
+    valid = frame_labels != IGNORE_ID
+    w, b = fc.weight, fc.bias
+    if not with_silence_head:
+        safe = torch.where(valid, frame_labels, torch.zeros_like(frame_labels)).long()
+        lse = class_lse(h, w, b)
+    else:
+        # word CE over channels [1, vocab): a label's column is the label
+        # (the unfused path slices [:, :, 1:vocab] and indexes label - 1)
+        safe = torch.where(valid, frame_labels, torch.ones_like(frame_labels))
+        safe = safe.clamp(1, vocab_size - 1).long()
+        lse = class_lse(h, w[1:vocab_size], b[1:vocab_size])
+    nll = lse - _frame_logits(h, fc, safe)
+    m = valid & sample_mask[:, None]
+    word_loss = _group_mean(torch.where(m, nll, torch.zeros_like(nll)).sum(), m.sum())
+    if not with_silence_head:
+        return word_loss
+
+    silence_label = (~valid).float()
+    sil_logit = h @ w[vocab_size] + b[vocab_size]
+    per_elem = F.binary_cross_entropy_with_logits(sil_logit, silence_label, reduction="none")
+    sm = sample_mask[:, None]
+    count = sample_mask.sum() * sil_logit.shape[1]
+    sil_loss = _group_mean(torch.where(sm, per_elem, torch.zeros_like(per_elem)).sum(), count)
+    return word_loss + sil_loss
+
+
+def ctc_per_example_fused(h: torch.Tensor, fc: nn.Linear, labels: torch.Tensor,
+                          vocab_size: int = 21128) -> torch.Tensor:
+    """Each sample's CTC NLL divided by its target length (at least 1), from
+    the hidden: log-probs are the gathered column logits minus the row LSE
+    over the vocabulary's columns, and the alpha recursion runs on the
+    reduced emissions (blank and the N label positions). h f32[B, T, F],
+    labels int[B, N] left-packed and -100 padded -> f32[B]. A target that
+    cannot fit its frames gets about 1e30 / its length, as the JAX fused
+    loss gives it (the unfused loss gives ~1e5 there)."""
+    h = h.contiguous()
+    valid = labels != IGNORE_ID
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    w, b = fc.weight, fc.bias
+    lse = class_lse(h, w[:vocab_size], b[:vocab_size])
+    blank_lp = (h @ w[0] + b[0]) - lse
+    label_lp = gather_label_logits(h, w, b, safe) - lse[..., None]
+    nll = ctc_reduced_nll(blank_lp, label_lp, safe, valid)
+    return nll / valid.sum(dim=1).clamp(min=1)
+
+
+def ctc_loss_grouped_fused(h: torch.Tensor, fc: nn.Linear, labels: torch.Tensor,
+                           sample_mask: torch.Tensor, vocab_size: int = 21128) -> torch.Tensor:
+    """``ctc_loss_grouped(fc(h)[..., :vocab_size], ...)`` without the
+    logits: the group's mean of :func:`ctc_per_example_fused`."""
+    return group_mean(ctc_per_example_fused(h, fc, labels, vocab_size), sample_mask)
 
 
 def transcript_ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,9 @@ from lyricalignment_tpu_torch.models.align_model import AlignModel, forward_from
 from lyricalignment_tpu_torch.train.losses import (
     ctc_frames_needed,
     ctc_per_example,
+    ctc_per_example_fused,
     frame_ce_loss_grouped,
+    frame_ce_loss_grouped_fused,
     group_mean,
     masked_ce_grouped,
 )
@@ -57,7 +59,8 @@ class TrainConfig:
     # bf16 (they are averaged anyway) and stores Adam's first moment in bf16
     grad_accum_dtype: Optional[torch.dtype] = None   # None = float32
     adam_mu_dtype: Optional[torch.dtype] = None      # None = float32
-    # the fused classifier->loss variants are not ported yet; True raises
+    # the align losses from the head's pre-classifier hidden and its fc
+    # (train/losses.py *_fused): the [B, T, C] logits are never written
     fused_losses: bool = False
     # as AlignModelConfig.freeze_encoder: the encoder gets no gradient, no
     # optimizer state and no update
@@ -77,14 +80,7 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
-def _no_fused(tcfg: TrainConfig) -> None:
-    if tcfg.fused_losses:
-        raise NotImplementedError(
-            "fused_losses: the fused classifier->loss variants are not ported yet")
-
-
 def init_train_state(model: AlignModel, tcfg: TrainConfig) -> Tuple[TrainState, AdamWChain]:
-    _no_fused(tcfg)
     labels = param_group_labels(model.named_parameters(), freeze_encoder=tcfg.freeze_encoder)
     tx = make_optimizer(labels, head_lr=tcfg.head_lr, backbone_lr=tcfg.backbone_lr,
                         weight_decay=tcfg.weight_decay, warmup_steps=tcfg.warmup_steps,
@@ -113,26 +109,38 @@ def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
     """Loss composition of the reference's ``train_step`` body
     (`train_multitask.py:250-325`) on one batch of tensors on the model's
     device, as ``to_device`` gives it. ``generator`` draws the head's
-    dropout (None: no dropout)."""
-    _no_fused(tcfg)
+    dropout (None: no dropout). Under ``tcfg.fused_losses`` the align losses
+    read the head's pre-classifier hidden and its fc; the CTC per-sample
+    losses are computed once and group-meaned twice, in both modes."""
     mcfg = model.cfg
+    fused = tcfg.fused_losses and mcfg.train_alignment
     align_out, trans_logits = forward_from_audio(
         model, batch["audio"],
         y_in=batch["decoder_input"] if mcfg.train_transcript else None,
         trim_to_input_length=False, generator=generator, remat=tcfg.remat,
-        align_head_output="logits")
+        align_head_output="hidden" if fused else "logits")
 
     align_mask = batch["has_alignment"].bool()
     trans_mask = ~align_mask
     zero = torch.zeros((), dtype=torch.float32, device=batch["audio"].device)
     align_ce = align_ctc = trans_ce = trans_ctc = zero
     if mcfg.train_alignment:
-        align_ce = frame_ce_loss_grouped(align_out, batch["frame_labels"], align_mask,
-                                         with_silence_head=tcfg.use_ctc,
-                                         vocab_size=tcfg.vocab_size)
+        fc = model.align_rnn.fc
+        if fused:
+            align_ce = frame_ce_loss_grouped_fused(
+                align_out, fc, batch["frame_labels"], align_mask,
+                with_silence_head=tcfg.use_ctc, vocab_size=tcfg.vocab_size)
+        else:
+            align_ce = frame_ce_loss_grouped(align_out, batch["frame_labels"], align_mask,
+                                             with_silence_head=tcfg.use_ctc,
+                                             vocab_size=tcfg.vocab_size)
         if tcfg.use_ctc:
-            per_example = ctc_per_example(align_out[:, :, : tcfg.vocab_size],
-                                          batch["ctc_labels"], batch["ctc_frames_needed"])
+            if fused:
+                per_example = ctc_per_example_fused(align_out, fc, batch["ctc_labels"],
+                                                    tcfg.vocab_size)
+            else:
+                per_example = ctc_per_example(align_out[:, :, : tcfg.vocab_size],
+                                              batch["ctc_labels"], batch["ctc_frames_needed"])
             align_ctc = group_mean(per_example, align_mask)
             # the reference also applies CTC to transcript-only samples
             # (`train_multitask.py:312-315`)

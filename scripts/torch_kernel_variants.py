@@ -64,29 +64,32 @@ __device__ __forceinline__ void wgmma_m64n{n}k8_tf32_{a_from}(float (&d)[{nd}], 
 
 
 _HELPERS_AT = "__device__ __forceinline__ float ex2_ftz(float x) {"
-_STAGES = "constexpr int kStages = 2; "
-_N128 = [("constexpr int kBN = 256; ", "constexpr int kBN = 128; "),
-         ("wgmma_m64n256k8_tf32_rs(", "wgmma_m64n128k8_tf32_rs("),
-         ("hopper.cuh", _HELPERS_AT, tf32_wgmma(128, "rs") + _HELPERS_AT)]
+_STAGES = "constexpr int kStages = 4; "
 # A read by the tensor cores from the stage's h tile (hi and lo alike: timed only)
 _A_SMEM = [
-    ("hopper.cuh", _HELPERS_AT, tf32_wgmma(256, "ss") + _HELPERS_AT),
+    ("hopper.cuh", _HELPERS_AT, tf32_wgmma(128, "ss") + _HELPERS_AT),
     ("          const char* row_ptr =",
      "          const uint64_t desc_a = sw128_desc(sm.h[st] + 64 * (wg - 1) * kBK, 16, 1024);\n"
      "          const char* row_ptr ="),
-    ("issue_half(acc, a_hi[0], a_lo[0], desc_hi,", "issue_half(acc, desc_a, desc_hi,"),
-    ("issue_half(acc, a_hi[1], a_lo[1], desc_hi,", "issue_half(acc, desc_a, desc_hi,"),
+    ("issue_half(acc, a_hi[half], a_lo[half], desc_hi,", "issue_half(acc, desc_a, desc_hi,"),
     ("issue_half(float (&acc)[kBN / 2], uint32_t (&hi)[2][4],\n"
      "                                           uint32_t (&lo)[2][4], uint64_t desc_hi,",
      "issue_half(float (&acc)[kBN / 2], uint64_t desc_a, uint64_t desc_hi,"),
     ("  fence_a(hi, lo);\n  wgmma_fence();", "  wgmma_fence();"),
-    ("wgmma_m64n256k8_tf32_rs(acc, lo[j], ", "wgmma_m64n256k8_tf32_ss(acc, desc_a + 2 * kk, "),
-    ("wgmma_m64n256k8_tf32_rs(acc, hi[j], ", "wgmma_m64n256k8_tf32_ss(acc, desc_a + 2 * kk, "),
+    ("wgmma_m64n128k8_tf32_rs(acc, lo[j], ", "wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, "),
+    ("wgmma_m64n128k8_tf32_rs(acc, hi[j], ", "wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, "),
 ]
-_LO_PRODUCTS = [("    wgmma_m64n256k8_tf32_rs(acc, lo[j], desc_hi + 2 * kk, accumulate || j > 0);\n"
-                 "    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_lo + 2 * kk, 1);\n"
-                 "    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, 1);",
-                 "    wgmma_m64n256k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, accumulate || j > 0);")]
+_LO_PRODUCTS = [("    wgmma_m64n128k8_tf32_rs(acc, lo[j], desc_hi + 2 * kk, accumulate || j > 0);\n"
+                 "    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_lo + 2 * kk, 1);\n"
+                 "    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, 1);",
+                 "    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, accumulate || j > 0);")]
+# a tile's products summed in the wgmma accumulator, as the kernel was
+# before each group started a fresh one (the tensor cores' truncating adds;
+# the wait after each group stays)
+_ONE_ACCUMULATOR = [
+    ("              add_group(run, acc);\n", ""),
+    ("issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, 0);",
+     "issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, c > 0 || half > 0);")]
 
 # the scratch-size function of a variant that keeps more after the packed
 # backpointers: the packed words whether or not they flush, then `extra`
@@ -121,13 +124,13 @@ VARIANTS = {
     # 128-column tiles: a stage is 48 KB, so rings of 2 to 4 fit (a ring of 1
     # cannot run: a stage is released only once the next one's products are
     # issued)
-    "lse_n128_ring_2": ("lse.cu", False, _N128),
-    "lse_n128_ring_3": ("lse.cu", False, _N128 + [(_STAGES, "constexpr int kStages = 3; ")]),
-    "lse_n128_ring_4": ("lse.cu", False, _N128 + [(_STAGES, "constexpr int kStages = 4; ")]),
+    "lse_ring_2": ("lse.cu", False, [(_STAGES, "constexpr int kStages = 2; ")]),
+    "lse_ring_3": ("lse.cu", False, [(_STAGES, "constexpr int kStages = 3; ")]),
+    "lse_one_accumulator": ("lse.cu", False, _ONE_ACCUMULATOR),
     "lse_a_from_smem": ("lse.cu", True, _A_SMEM),
     "lse_no_epilogue": ("lse.cu", True, [
-        ("merge_tile(acc, m, s, bias, tile * kBN, cols, lane);",
-         "m[0] = m[1] = 0.f; s[0] += acc[0]; s[1] += acc[kBN / 2 - 1];")]),
+        ("merge_tile(run, m, s, bias, tile * kBN, cols, lane);",
+         "m[0] = m[1] = 0.f; s[0] += run[0]; s[1] += run[kBN / 2 - 1];")]),
     # one TF32 product in place of three, w_lo still loaded / not loaded
     "lse_no_lo_products": ("lse.cu", True, _LO_PRODUCTS),
     "lse_no_lo_loads": ("lse.cu", True, _LO_PRODUCTS + [

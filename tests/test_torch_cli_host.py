@@ -113,10 +113,20 @@ def _printed(out):
 
 
 def test_nogt_equals_jax(nogt_setup, monkeypatch, capsys):
+    _nogt_against_jax(nogt_setup, monkeypatch, capsys, [], "plain")
+
+
+def test_nogt_int8_encoder_equals_jax(nogt_setup, monkeypatch, capsys):
+    """``--int8-encoder`` on both CLIs (int8-resident encoder weights): the
+    same rows within one 20 ms frame on at most 1 boundary in 50."""
+    _nogt_against_jax(nogt_setup, monkeypatch, capsys, ["--int8-encoder"], "int8")
+
+
+def _nogt_against_jax(nogt_setup, monkeypatch, capsys, extra, tag):
     model_dir, data, d = nogt_setup
     argv = ["-f", data, "--model-dir", model_dir, "--synthetic-vocab", "--use-ctc-loss",
-            "--batch-size", "2"]
-    port_json, jax_json = str(d / "port" / "out.json"), str(d / "jax" / "out.json")
+            "--batch-size", "2", *extra]
+    port_json, jax_json = str(d / tag / "port.json"), str(d / tag / "jax.json")
     capsys.readouterr()
     results = nogt.main(argv + ["-o", port_json, "--device", "cpu"])
     port_out = capsys.readouterr().out
@@ -145,10 +155,3 @@ def test_nogt_equals_jax(nogt_setup, monkeypatch, capsys):
                 flips += a != b
                 assert abs(a - b) <= 0.02 + 1e-9, (a, b)
     assert total == 2 * (4 + 8 + 2) and flips <= total // 50
-
-
-def test_nogt_int8_encoder_not_ported(nogt_setup):
-    model_dir, data, _ = nogt_setup
-    with pytest.raises(SystemExit, match="not ported"):
-        nogt.main(["-f", data, "--model-dir", model_dir, "--synthetic-vocab",
-                   "--int8-encoder", "--device", "cpu"])

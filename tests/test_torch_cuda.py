@@ -422,10 +422,10 @@ def _lse_inputs(dev, rows, feat, cols, seed, h_scale=1.0):
     return h, w, b
 
 
-# around the kernel's tiles: 128 rows of h an item, 256 columns of w a tile
-# (4229 columns are 17 tiles, split into column ranges), 32 feat a stage
+# around the kernel's tiles: 128 rows of h an item, 128 columns of w a tile
+# (4229 columns are 34 tiles, split into column ranges), 32 feat a stage
 @pytest.mark.parametrize("feat", [4, 36, 64, 768])
-@pytest.mark.parametrize("cols", [5, 255, 256, 257, 4229])
+@pytest.mark.parametrize("cols", [5, 127, 128, 129, 255, 256, 257, 4229])
 @pytest.mark.parametrize("rows", [1, 127, 128, 129])
 def test_row_lse_edges(dev, rows, cols, feat):
     """The split-precision tensor-core kernel against the plain float32
@@ -479,6 +479,30 @@ def test_row_lse_large_logits(dev, case):
     torch.testing.assert_close(got.double(), exact, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("top", [20.0, 40.0])
+def test_row_lse_accumulation_rounds(dev, top):
+    """Rows whose largest logit is a sum of 768 products of one sign, as on
+    trained weights: float32 adds that truncate (the tensor cores' own,
+    over all of a row's products) pull such a logit toward zero by ~1e-4;
+    the kernel adds each group of six products into its running sum
+    rounded to nearest, and rounds the low halves of its split. Against
+    float64: atol 1.5e-5 at a top logit of 20, 3e-5 at 40 (a few float32
+    ulps of the logit)."""
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse
+
+    h, w, b = _lse_inputs(dev, 300, 768, 4229, 13)
+    h = h.abs()
+    # column r of the first 256 rows aligned with row r: logit ~ top, all
+    # its products positive
+    aligned = h[:256] / (h[:256] ** 2).sum(dim=1, keepdim=True) * top
+    w[:256] = (aligned + 0.1 * w[:256].abs()).contiguous()
+    got = row_lse(h, w, b)
+    exact = torch.logsumexp(h.double() @ w.double().T + b.double(), dim=-1)
+    assert float(exact[:256].min()) > 0.5 * top
+    torch.testing.assert_close(got.double(), exact, atol=1.5e-5 if top == 20.0 else 3e-5,
+                               rtol=0)
+
+
 def test_row_lse_refusals(dev):
     """What the tensor maps cannot take is refused, not copied: feat not a
     multiple of 4, h or w off a 16-byte boundary, shapes that disagree, other
@@ -503,6 +527,191 @@ def test_row_lse_refusals(dev):
     with pytest.raises(ValueError, match="contiguous"):
         row_lse(h, w.T.contiguous().T, b)
     assert row_lse(h[:0], w, b).shape == (0,)
+
+
+def _rel(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+# around the backward kernels' tiles: 32 rows of h and 32 columns of w, the
+# feat split in four slices of feat / 4, column ranges of the dh kernel
+@pytest.mark.parametrize("feat", [16, 48, 768])
+@pytest.mark.parametrize("cols", [1, 31, 33, 4229])
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 300])
+def test_row_lse_backward_edges(dev, rows, cols, feat):
+    """The row LSE (``la_row_lse``, atol 2e-5 against float64) and its
+    backward pair against the plain chunked recompute run in float64
+    (rel-L2 1e-5 each of dh, dw, db: float32 FMA over feat), and bit-equal
+    from run to run."""
+    from lyricalignment_tpu_torch.ops.viterbi import (
+        row_lse,
+        row_lse_bwd_dh,
+        row_lse_bwd_dw,
+        row_lse_bwd_plain,
+    )
+
+    h, w, b = _lse_inputs(dev, rows, feat, cols, rows + cols + feat)
+    g = torch.randn(rows, device=dev, generator=_gen(3))
+    lse = row_lse(h, w, b)
+    exact = torch.logsumexp(h.double() @ w.double().T + b.double(), dim=-1)
+    torch.testing.assert_close(lse.double(), exact, atol=2e-5, rtol=0)
+    assert torch.equal(lse, row_lse(h, w, b))
+    dh = row_lse_bwd_dh(h, w, b, lse, g)
+    dw, db = row_lse_bwd_dw(h, w, b, lse, g)
+    ref = row_lse_bwd_plain(h.double(), w.double(), b.double(), lse.double(), g.double())
+    for got, want in zip((dh, dw, db), ref):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= 1e-5, _rel(got, want)
+    assert torch.equal(dh, row_lse_bwd_dh(h, w, b, lse, g))
+    assert all(torch.equal(x, y) for x, y in zip((dw, db), row_lse_bwd_dw(h, w, b, lse, g)))
+
+
+@pytest.mark.parametrize("first", [0, 1])
+def test_row_lse_autograd_reaches_the_slice(dev, first):
+    """Under autograd, the gradient of a row slice ``w[first:first + C]`` of a
+    larger weight lands in those rows only, as autograd through the plain
+    version (float64) puts it; the forward kernel launches once and each
+    backward kernel once."""
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse, row_lse_plain
+
+    h, w, b = _lse_inputs(dev, 200, 64, 300, 5)
+    weights = torch.randn(200, device=dev, generator=_gen(4))
+    leaves = [x.clone().requires_grad_() for x in (h, w, b)]
+    kernels.reset_launch_counts()
+    (row_lse(leaves[0], leaves[1][first:first + 297], leaves[2][first:first + 297])
+     * weights).sum().backward()
+    assert dict(kernels.launches) == {"la_row_lse": 1, "la_row_lse_bwd_dh": 1,
+                                      "la_row_lse_bwd_dw": 1}
+    refs = [x.double().requires_grad_() for x in (h, w, b)]
+    (row_lse_plain(refs[0], refs[1][first:first + 297], refs[2][first:first + 297])
+     * weights.double()).sum().backward()
+    for got, want in zip(leaves, refs):
+        assert _rel(got.grad, want.grad) <= 1e-5
+    assert float(leaves[1].grad[first + 297:].abs().sum()) == 0.0
+
+
+def test_row_lse_backward_refusals(dev):
+    """The backward kernels take feat % 16 == 0 and feat <= 768: a forward
+    the split-precision kernel can take (feat 36) is refused at its
+    backward."""
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse, row_lse_bwd_dh
+
+    h, w, b = _lse_inputs(dev, 8, 36, 12, 1)
+    lse, g = torch.zeros(8, device=dev), torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="feat % 16"):
+        row_lse_bwd_dh(h, w, b, lse, g)
+    out = row_lse(h.clone().requires_grad_(), w, b)
+    with pytest.raises(ValueError, match="feat % 16"):
+        out.sum().backward()
+    h, w, b = _lse_inputs(dev, 8, 784, 12, 1)
+    with pytest.raises(ValueError, match="feat <= 768"):
+        row_lse_bwd_dh(h, w, b, lse, g)
+
+
+def _ctc_case(dev, b, t, n, seed, kinds):
+    """Reduced emissions and targets: per sample a kind of target
+    ("random", "repeats", "empty", "infeasible" (more labels than frames),
+    "full")."""
+    g = _gen(seed)
+    blank = torch.randn(b, t, device=dev, generator=g) - 2.0
+    label = torch.randn(b, t, n, device=dev, generator=g) - 2.0
+    labels = torch.randint(1, 50, (b, n), device=dev, generator=g, dtype=torch.int32)
+    valid = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    for i, kind in enumerate(kinds):
+        k = {"random": n // 2, "repeats": n // 2, "empty": 0, "full": n,
+             "infeasible": n}[kind]
+        valid[i, :k] = True
+        if kind == "repeats":
+            labels[i, 1:k:2] = labels[i, 0:k - 1:2]
+    return blank, label, labels, valid
+
+
+@pytest.mark.parametrize("t,n", [(1, 1), (2, 3), (37, 5), (1500, 48), (300, 400)])
+def test_ctc_reduced(dev, t, n):
+    """The reduced CTC kernels against the plain recursions (NLL rtol 1e-5,
+    gradients atol 1e-5 + rel-L2 1e-5): repeated labels, an all-padding
+    target, a target that cannot fit (NLL ~1e30, gradient still flowing)
+    and a full one; bit-equal from run to run."""
+    from lyricalignment_tpu_torch.ops import ctc
+
+    kinds = ["random", "repeats", "empty", "infeasible" if 2 * n > t else "full"]
+    blank, label, labels, valid = _ctc_case(dev, 4, t, n, t + n, kinds)
+    nll, alphas = ctc.ctc_reduced_fwd(blank, label, labels, valid)
+    ref_nll, ref_alphas = ctc.ctc_reduced_fwd_plain(blank, label, labels, valid)
+    torch.testing.assert_close(nll, ref_nll, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(alphas, ref_alphas, rtol=1e-5, atol=1e-4)
+    g = torch.randn(4, device=dev, generator=_gen(9))
+    d_blank, d_label = ctc.ctc_reduced_bwd(alphas, labels, valid, g)
+    ref = ctc.ctc_reduced_bwd_plain(ref_alphas, labels, valid, g)
+    for got, want in zip((d_blank, d_label), ref):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        assert _rel(got, want) <= 1e-5
+    again = ctc.ctc_reduced_bwd(alphas, labels, valid, g)
+    assert torch.equal(d_blank, again[0]) and torch.equal(d_label, again[1])
+    assert torch.equal(nll, ctc.ctc_reduced_fwd(blank, label, labels, valid)[0])
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 64, 24), (40, 1024, 4096), (3000, 4096, 1024)])
+def test_int8_linear_matches_the_cpu_path(dev, m, k, n):
+    """``_linear_int8`` on the card (``torch._int_mm`` from its least M, 17)
+    against the CPU path: the int32 products are exact, so the results agree
+    to float32 rounding of the rescale."""
+    from torch import nn
+
+    from lyricalignment_tpu_torch.models import whisper as tw
+
+    g = torch.Generator().manual_seed(m + k)
+    x = torch.randn(m, k, generator=g)
+    lin = nn.Linear(k, n)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, k ** -0.5, generator=g)
+    want = tw._linear_int8(lin, x)
+    got = tw._linear_int8(lin.to(dev), x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    xq, _ = tw._quantize_int8(x, -1)
+    wq, _ = tw._quantize_int8(lin.weight.cpu(), 1)
+    assert torch.equal(tw._int_mm(xq.to(dev), wq.to(dev)).cpu(), xq.int() @ wq.int().T)
+
+
+def test_fused_losses_match_the_cpu_path(dev):
+    """The fused CE and CTC losses of a small head on the card (row LSE and
+    its backward kernels, reduced CTC kernels) against the CPU plain path:
+    losses rtol 1e-5, gradients of h, fc weight and bias rel-L2 1e-4 (the
+    kernels sum in another order than the chunked plain path, and the CTC
+    gradient's softmax and posterior parts cancel: 1.4e-5 to 1.6e-5 in
+    three runs on an H100, the gather's backward adding in no fixed
+    order)."""
+    from torch import nn
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.train import losses
+
+    g = torch.Generator().manual_seed(2)
+    h = torch.randn(2, 300, 64, generator=g)
+    fc = nn.Linear(64, 501)
+    labels = torch.randint(1, 500, (2, 300), generator=g)
+    labels[:, ::3] = -100
+    ctc_labels = torch.full((2, 12), -100)
+    ctc_labels[0, :10] = torch.randint(1, 500, (10,), generator=g)
+    ctc_labels[0, 4] = ctc_labels[0, 3]
+    mask = torch.tensor([True, False])
+    out = {}
+    for name, d in (("cpu", "cpu"), ("gpu", dev)):
+        hh = h.to(d).detach().requires_grad_()
+        f = nn.Linear(64, 501).to(d)
+        f.load_state_dict(fc.state_dict())
+        kernels.reset_launch_counts()
+        loss = (losses.frame_ce_loss_grouped_fused(hh, f, labels.to(d), mask.to(d), True, 500)
+                + losses.ctc_loss_grouped_fused(hh, f, ctc_labels.to(d), mask.to(d), 500))
+        loss.backward()
+        out[name] = (loss.item(), [t.cpu() for t in (hh.grad, f.weight.grad, f.bias.grad)],
+                     dict(kernels.launches))
+    assert out["gpu"][2] == {"la_row_lse": 2, "la_row_lse_bwd_dh": 2, "la_row_lse_bwd_dw": 2,
+                             "la_ctc_reduced_fwd": 1, "la_ctc_reduced_bwd": 1}
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0]), out
+    rels = [_rel(got, want) for got, want in zip(out["gpu"][1], out["cpu"][1])]
+    assert max(rels) <= 1e-4, rels
 
 
 # l_max 1 .. 1000: two states a lane on 1, 1, 2, 5, 10 and 32 warps; 1100 /

@@ -140,13 +140,36 @@ def test_check_context_matches_jax(tiny, prompt_len, max_new):
     assert raises(_check_context, model.cfg) == raises(jax_check_context, jcfg)
 
 
-def test_int8_cross_kv_is_refused(tiny):
+def test_int8_cross_kv_cache(tiny):
+    """``int8_cross_kv``: the cache holds int8 cross K/V with their scales
+    (K per key over Dh, V per head and channel over T) equal to JAX's, and a
+    prime and two beam steps stay within 5% rel-L2 of the float32 logits
+    (tests/test_torch_int8.py holds them against JAX's int8 logits)."""
     import dataclasses
 
-    _, _, model, xa, _ = tiny
+    jcfg, jparams, model, xa, prompt = tiny
     cfg = dataclasses.replace(model.cfg, int8_cross_kv=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tw.init_decode_cache(model, cfg, torch.from_numpy(xa), P, 4)
+    jcache = jw.init_decode_cache(jparams, dataclasses.replace(jcfg, int8_cross_kv=True),
+                                  jnp.asarray(xa), P, 4, 2)
+    outs = {}
+    for name, c in (("f32", model.cfg), ("int8", cfg)):
+        cache = tw.init_decode_cache(model, c, torch.from_numpy(xa), P, 4, beam_size=2)
+        logits, _, cache = tw.prime_decode_cache(model, c, torch.from_numpy(prompt), cache)
+        seq = [logits]
+        for tok in _fed_tokens(2, 2, 4):
+            seq.append(tw.decode_step(model, c, torch.from_numpy(tok), cache)[0])
+        outs[name] = (torch.cat([x.reshape(-1) for x in seq]).double().numpy(), cache)
+    blk, jblk = outs["int8"][1]["blocks"][0], jcache["blocks"][0]
+    assert blk["cross_k"].dtype == blk["cross_v"].dtype == torch.int8
+    assert blk["cross_k_s"].shape == (B, 50, 4, 1) and blk["cross_v_s"].shape == (B, 1, 4, 16)
+    for key in ("cross_k", "cross_v", "cross_k_s", "cross_v_s"):
+        want = np.asarray(jblk[key])
+        np.testing.assert_allclose(blk[key].numpy().astype(np.float64), want, rtol=1e-6,
+                                   atol=1 if key in ("cross_k", "cross_v") else 0, err_msg=key)
+    assert "cross_k_s" not in outs["f32"][1]["blocks"][0]
+    got, ref = outs["int8"][0], outs["f32"][0]
+    assert np.isfinite(got).all()
+    assert 0 < np.linalg.norm(got - ref) / np.linalg.norm(ref) < 0.05
 
 
 def test_is_multilingual_matches_jax():

@@ -29,7 +29,8 @@ assert len(names) >= 30 and not bad, bad
 need = {"api", "cli.inference_transcript", "cli.evaluate_transcript", "decode.beam",
         "decode.longform", "decode.timestamps", "decode.transcribe", "text.normalize",
         "text.heteronyms", "utils.metrics", "models.convert", "cli.convert_checkpoint",
-        "cli.serve", "cli.inference_alignment_nogt", "cli.postprocess", "data.native_loader"}
+        "cli.serve", "cli.inference_alignment_nogt", "cli.postprocess", "data.native_loader",
+        "ops.ctc", "utils.observability", "train.losses"}
 missing = {n for n in need if pkg.__name__ + "." + n not in names}
 assert not missing, missing
 from lyricalignment_tpu_torch.api import LyricAligner
@@ -94,6 +95,20 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         viterbi_dp(meta(1, 4, 2), meta(1, 4), meta(1, 2, dtype=torch.int32),
                    meta(1, dtype=torch.int32), meta(1, dtype=torch.int32))
+    from lyricalignment_tpu_torch.ops.ctc import ctc_reduced_bwd, ctc_reduced_fwd
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse_bwd_dh, row_lse_bwd_dw
+
+    with pytest.raises(ValueError, match="no kernel"):
+        row_lse(meta(4, 16).requires_grad_(), meta(5, 16), meta(5))
+    with pytest.raises(ValueError, match="no kernel"):
+        row_lse_bwd_dh(meta(4, 16), meta(5, 16), meta(5), meta(4), meta(4))
+    with pytest.raises(ValueError, match="no kernel"):
+        row_lse_bwd_dw(meta(4, 16), meta(5, 16), meta(5), meta(4), meta(4))
+    labels, valid = meta(1, 2, dtype=torch.int32), meta(1, 2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="no kernel"):
+        ctc_reduced_fwd(meta(1, 4), meta(1, 4, 2), labels, valid)
+    with pytest.raises(ValueError, match="no kernel"):
+        ctc_reduced_bwd(meta(1, 4, 5), labels, valid, meta(1))
 
 
 def test_transcription_entry_points_need_cuda_by_default(tmp_path, monkeypatch):

@@ -2,9 +2,12 @@
 a machine without a GPU can check it:
 
 * the 3xTF32 split of ``csrc/lse.cu`` (hi = the float32 value with its low
-  13 bits cleared, which is what the tensor cores read; lo = x - hi, itself
-  truncated when read; three float32 products), emulated in torch and held
-  to the kernel's tolerance against a float64 log-sum-exp;
+  13 bits cleared, which is what the tensor cores read; lo = x - hi rounded
+  to the nearest TF32 value; three float32 products), emulated in torch and
+  held to the kernel's tolerance against a float64 log-sum-exp, and its
+  accumulation (each group of six products in a fresh accumulator whose
+  adds truncate, as the tensor cores' do, then added into a running sum
+  rounded to nearest) against one accumulator for all of a row's products;
 * the tables of ``ops/mel.py:_fft_tables`` driven through the staged
   transform of ``csrc/mel.cu`` (a frame's 400 windowed samples as 200
   complex points, 8 x 25, then the even/odd join) in numpy, against
@@ -30,6 +33,12 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.view(torch.int32) & -8192).view(torch.float32)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest TF32 value, ties away from zero (the
+    kernel's ``cvt.rna.tf32.f32``)."""
+    return ((x.view(torch.int32) + 4096) & -8192).view(torch.float32)
+
+
 def _lse_case(h_scale, rows=64, feat=768, cols=4224, seed=0):
     """The scales of chip_smoke.py's row-LSE check (h ~ 0.5 N(0, 1) there,
     w and b uniform in +-1/sqrt(feat)), a 4224-column slice."""
@@ -53,7 +62,8 @@ def test_three_tf32_products_hold_the_lse_tolerance(h_scale):
     scaled by 30 (logits of +-100)."""
     h, w, b, exact = _lse_case(h_scale)
     h_hi, w_hi = _tf32(h), _tf32(w)
-    h_lo, w_lo = _tf32(h - h_hi), _tf32(w - w_hi)
+    h_lo, w_lo = _tf32_rna(h - h_hi), _tf32_rna(w - w_hi)
+    assert torch.equal(_tf32(h_lo), h_lo) and torch.equal(_tf32(w_lo), w_lo)  # read whole
     assert torch.equal(h_hi + (h - h_hi), h) and torch.equal(w_hi + (w - w_hi), w)  # exact split
     logits = (h_lo @ w_hi.T + h_hi @ w_lo.T) + h_hi @ w_hi.T + b
     got = torch.logsumexp(logits, dim=-1)
@@ -67,6 +77,64 @@ def test_one_tf32_product_does_not_hold_it():
     got = torch.logsumexp(_tf32(h) @ _tf32(w).T + b, dim=-1)
     err = float((got.double() - exact).abs().max())
     assert not _holds(got, exact) and err > 1e-3, err
+
+
+def _toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero (a truncating float32 add)."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _kernel_logits(h, w, group):
+    """The kernel's logits as its tensor cores and registers form them: the
+    three TF32 products of each k-step of 8 feat (lo . hi, hi . lo, hi . hi)
+    added into an accumulator with truncating float32 adds, a fresh
+    accumulator every ``group`` products (None: one for the whole row)
+    added into a running float32 sum rounded to nearest."""
+    h_hi, w_hi = _tf32(h), _tf32(w)
+    h_lo, w_lo = _tf32_rna(h - h_hi), _tf32_rna(w - w_hi)
+    run = torch.zeros(h.shape[0], w.shape[0], dtype=torch.float32)
+    acc = None
+    i = 0
+    for k in range(0, h.shape[1], 8):
+        for a, b in ((h_lo, w_hi), (h_hi, w_lo), (h_hi, w_hi)):
+            p = a[:, k:k + 8].double() @ b[:, k:k + 8].double().T
+            if acc is not None and group is not None and i % group == 0:
+                run = run + acc
+                acc = None
+            acc = _toward_zero(p if acc is None else acc.double() + p)
+            i += 1
+    return run + acc
+
+
+def _aligned_case(top=20.0, rows=8, feat=768, cols=512, seed=3):
+    """Rows whose largest logit (about ``top``) is a sum of products of one
+    sign, as the largest logits of trained weights are."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(np.abs(rng.standard_normal((rows, feat)) * 0.5).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((cols, feat)) / math.sqrt(feat)).astype(np.float32))
+    w[:rows] = h / (h ** 2).sum(dim=1, keepdim=True) * top + 0.1 * w[:rows].abs()
+    exact = torch.logsumexp(h.double() @ w.double().T, dim=-1)
+    return h, w, exact
+
+
+def test_one_truncating_accumulator_drifts_on_aligned_rows():
+    """All 288 products of a row in one accumulator whose adds truncate:
+    the lse of such rows is off by more than 5e-5 (what the kernel did
+    before it started a fresh accumulator a group)."""
+    h, w, exact = _aligned_case()
+    err = float((torch.logsumexp(_kernel_logits(h, w, None).double(), -1) - exact).abs().max())
+    assert err > 5e-5, err
+
+
+def test_groups_of_six_hold_aligned_rows():
+    """A fresh accumulator every six products, added into a running sum
+    rounded to nearest, holds such rows within 1.5e-5 (the card test's
+    atol at a top logit of 20)."""
+    h, w, exact = _aligned_case()
+    err = float((torch.logsumexp(_kernel_logits(h, w, 6).double(), -1) - exact).abs().max())
+    assert err <= 1.5e-5, err
 
 
 def test_fft_tables_are_float64_values_rounded_once():

@@ -87,14 +87,34 @@ def test_train_cli_two_steps_then_align_and_resume(data):
     assert torch.load(f"{save}/last_state.pt", weights_only=True)["step"] == 3
 
 
-@pytest.mark.parametrize("flag", [["--fused-losses"], ["--tensorboard"],
-                                  ["--profile-at-step", "3"]])
-def test_unported_flags_raise(data, flag):
+@pytest.mark.parametrize("flags", [["--fused-losses"], ["--tensorboard", "--profile-at-step", "2"],
+                                   ["--fused-losses", "--tensorboard", "--profile-at-step", "2"]])
+def test_fused_losses_tensorboard_and_profile_flags(data, flags):
+    """``--fused-losses`` trains on the fused losses (alone: step 1's losses
+    equal an unfused run's, rtol 1e-4: the same data, seed and dropout);
+    ``--tensorboard`` writes event files under ``tb/`` beside
+    ``metrics.jsonl``; ``--profile-at-step 2`` writes the profile of step 2
+    with its ``data`` and ``train_step`` spans."""
     from lyricalignment_tpu_torch.cli.train_multitask import main
 
     tmp, data_json, dev_json = data
-    with pytest.raises(SystemExit, match="not ported"):
-        main(_argv((data_json, dev_json), str(tmp / "r"), 1, *flag))
+    save = tmp / "r"
+    main(_argv((data_json, dev_json), str(save), 2, *flags))
+    rows = [json.loads(line) for line in open(save / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["total"]) and r["align_ctc"] > 0 for r in rows)
+    assert json.loads((save / "args.json").read_text())["fused_losses"] == ("--fused-losses" in flags)
+    if flags == ["--fused-losses"]:
+        main(_argv((data_json, dev_json), str(tmp / "plain"), 1))
+        plain = json.loads(open(tmp / "plain" / "metrics.jsonl").readline())
+        for k in ("total", "align_ce", "align_ctc", "trans_ce", "trans_ctc"):
+            np.testing.assert_allclose(rows[0][k], plain[k], rtol=1e-4, err_msg=k)
+    assert any((save / "tb").glob("events.out.tfevents.*")) == ("--tensorboard" in flags)
+    trace = save / "profile" / "trace.json"
+    assert trace.exists() == ("--profile-at-step" in flags)
+    if trace.exists():
+        names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+        assert {"data", "train_step"} <= names
 
 
 def test_whisper_checkpoint_initialises_the_backbone(tmp_path):

@@ -169,3 +169,62 @@ def test_eval_step_is_deterministic_and_dropout_uses_the_generator(rng):
                 for s in (5, 5, 6)]
     assert float(drop[0]) == float(drop[1]) != float(drop[2])
     assert float(drop[0]) != float(a["align_ce"])
+
+
+@pytest.mark.parametrize("use_ctc", [False, True])
+def test_fused_losses_match_jax_and_unfused(rng, use_ctc):
+    """``fused_losses``: the port's fused composition against the JAX fused
+    one (losses rtol 1e-5, every gradient rel-L2 1e-5, 1e-4 with the fused
+    CTC), and against the port's own unfused losses (rtol 1e-5; gradients
+    1e-5 without CTC, 5e-3 with it, as against JAX's unfused)."""
+    cfg, params = _jax_setup(seed=3)
+    batch = _batch(rng)
+    kw = dict(TCFG, use_ctc=use_ctc)
+    (_, ref), ref_grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_multitask_losses(p, cfg, JaxTrainConfig(**kw, fused_losses=True), b,
+                                          dropout_rng=None),
+        has_aux=True))(as_jax(params), jax.tree_util.tree_map(jnp.asarray, batch))
+    ref_grads = _jax_as_port(ref_grads)
+    runs = {}
+    for fused in (True, False):
+        model = torch_model(cfg, params)
+        total, losses = multitask_losses(model, TrainConfig(**kw, fused_losses=fused),
+                                         to_device(batch, "cpu"), None)
+        total.backward()
+        runs[fused] = ({k: float(v.detach()) for k, v in losses.items()},
+                       {n: p.grad.numpy() for n, p in model.named_parameters()})
+    (fused_losses, fused_grads), (plain_losses, plain_grads) = runs[True], runs[False]
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(fused_losses[k], float(ref[k]), rtol=1e-5, err_msg=k)
+        np.testing.assert_allclose(fused_losses[k], plain_losses[k], rtol=1e-5, err_msg=k)
+    assert (fused_losses["align_ctc"] > 0) == use_ctc
+    for name, grad in fused_grads.items():
+        assert rel_l2(grad, ref_grads[name]) < (1e-4 if use_ctc else 1e-5), name
+        assert rel_l2(grad, plain_grads[name]) < (5e-3 if use_ctc else 1e-5), name
+
+
+def test_fused_train_step_matches_jax(rng):
+    """One fused ``make_train_step`` (CE, CTC and transcript losses, 2
+    micro-batches) against the JAX fused step: losses rtol 1e-5, every
+    parameter's update within 2e-2 x its group's lr."""
+    cfg, params = _jax_setup(seed=4)
+    stacked = _stack([_batch(rng) for _ in range(2)])
+    kw = dict(TCFG, fused_losses=True)
+    jtcfg = JaxTrainConfig(**kw)
+    state, tx = jax_init_state(as_jax(params), jtcfg)
+    state, jlosses = jax_make_train_step(cfg, jtcfg, tx)(
+        state, jax.tree_util.tree_map(jnp.asarray, stacked), jax.random.PRNGKey(0))
+    ref_after = _jax_as_port(state.params)
+    tcfg = TrainConfig(**kw)
+    model = torch_model(cfg, params)
+    before = _port_params(model)
+    tstate, ttx = init_train_state(model, tcfg)
+    tstate, losses = make_train_step(tcfg, ttx)(tstate, stacked)
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(float(losses[k]), float(jlosses[k]), rtol=1e-5, err_msg=k)
+    assert float(losses["align_ctc"]) > 0
+    for name, p in model.named_parameters():
+        lr = TCFG["head_lr"] if name.startswith("align_rnn.") else TCFG["backbone_lr"]
+        got, want = p.detach().numpy() - before[name], ref_after[name] - before[name]
+        assert np.abs(got - want).max() <= 2e-2 * lr, name
+        assert np.abs(got).max() > 0.5 * lr, name

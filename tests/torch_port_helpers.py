@@ -64,7 +64,8 @@ def torch_config(jax_cfg, compute_dtype=torch.float32) -> AlignModelConfig:
     jw = jax_cfg.whisper
     wcfg = WhisperConfig(**{k: getattr(jw, k) for k in TINY_DIMS},
                          compute_dtype=compute_dtype, fast_gelu=jw.fast_gelu,
-                         onepass_encoder=jw.onepass_encoder)
+                         onepass_encoder=jw.onepass_encoder, int8_encoder=jw.int8_encoder,
+                         int8_cross_kv=jw.int8_cross_kv)
     return AlignModelConfig(
         whisper=wcfg, hidden_dim=jax_cfg.hidden_dim, output_dim=jax_cfg.output_dim,
         num_rnn_layers=jax_cfg.num_rnn_layers, bidirectional=jax_cfg.bidirectional,
