@@ -54,11 +54,13 @@ NVIDIA GPU (written for the H100, sm_90a):
        each kernel's rate, share of the bound and ptxas line as in 2., and
        its rate at B = 16 beside B = 2 (the grid's tail);
    (a') holds the row LSE (``la_row_lse``, atol 2e-5 against float64) and
-       its backward pair (``la_row_lse_bwd_dh``, ``la_row_lse_bwd_dw``)
-       against the plain chunked recompute in float64 at the training shape
-       (3000 rows, feat 768, the fc slices w[1:21128] and w[0:21128];
-       rel-L2 1e-5, two runs bit-equal), timed beside the chunked cuBLAS
-       route, the plain version and the bound;
+       its backward (``la_row_lse_bwd``: dh, dw, db) against the plain
+       chunked recompute in float64 at the training shape (3000 rows, feat
+       768, the fc slices w[1:21128] and w[0:21128]; rel-L2 1e-5, two runs
+       bit-equal); prints the backward's plan, scratch and ptxas lines, times
+       it (all outputs, dh alone, dw and db alone) beside the chunked cuBLAS
+       routes, the plain version and the bound, and its kernels' device ms
+       from a trace;
    (a'') holds the reduced CTC kernels against the plain recursions at
        B = 2, T = 1500, N = 48 and with an all-padding target and one that
        cannot fit, timed beside the chain floor (a one-warp probe) and the
@@ -77,7 +79,7 @@ NVIDIA GPU (written for the H100, sm_90a):
        micro-batch the row LSE against float64 (atol 2e-5), the fused
        losses and gradients against the unfused ones,
        then one warm-up and 2 timed steps (step ms, peak memory beside
-       (c)'s, launches: the row LSE and each backward kernel 16 a step, each
+       (c)'s, launches: the row LSE and its backward 16 a step, each
        CTC kernel 8);
    (d) runs ``python -m lyricalignment_tpu_torch.cli.train_multitask`` for 2
        steps of whisper-tiny on synthetic WAVs with ``--fused-losses
@@ -980,19 +982,44 @@ ROWS_FUSED = TRAIN_B * TRAIN_T   # rows of a micro-batch's hidden: 2 x 1500
 N_CTC, N_CTC_VALID = 48, 24      # the CTC label positions of bench_train's batch
 
 
+# the kernels of la_row_lse_bwd, by the names the profiler gives them
+# (demangled or mangled)
+LSE_BWD_PARTS = {
+    "p": ("bwd_gemm_kernel<128,0>", "bwd_gemm_kernelILi128ELi0E"),
+    "dh": ("bwd_gemm_kernel<64,1>", "bwd_gemm_kernelILi64ELi1E"),
+    "dw, db": ("bwd_gemm_kernel<64,2>", "bwd_gemm_kernelILi64ELi2E"),
+    "transposes": ("split_transpose_kernel",),
+    "w_lo": ("split_lo_kernel",),
+    "dh reduce": ("bwd_reduce_kernel",),
+}
+
+
+def _lse_bwd_part(name):
+    flat = name.replace(" ", "")
+    return next((part for part, keys in LSE_BWD_PARTS.items()
+                 if any(k in flat for k in keys)), None)
+
+
 def phase_train_lse_bwd(dev):
-    """(a'): the row LSE and its backward pair at the training shape (3000
-    rows, feat 768, the head's 21129-row fc) with both column slices the
-    fused losses take: w[1:21128] (CE with the silence head) and w[0:21128]
-    (CTC). The forward (``la_row_lse``) against float64 (atol 2e-5), the
-    backward against ``row_lse_bwd_plain`` run in float64 (rel-L2 1e-5 on
-    dh, dw and db: float32 FMA over 768 feat), each bit-equal from run to
-    run; the forward timed at this shape beside ``logsumexp(h @ W.T + b)``,
-    each backward kernel beside the chunked cuBLAS route (float32, TF32 off)
-    of its outputs, the plain version and the bound (the smaller of the
-    float32 CUDA-core and the 3xTF32 tensor-core routes, as row 3's)."""
+    """(a'): the row LSE and its backward at the training shape (3000 rows,
+    feat 768, the head's 21129-row fc) with both column slices the fused
+    losses take: w[1:21128] (CE with the silence head) and w[0:21128] (CTC).
+    The forward (``la_row_lse``) against float64 (atol 2e-5), the backward
+    (``la_row_lse_bwd``: dh, dw, db) against ``row_lse_bwd_plain`` run in
+    float64 (rel-L2 1e-5 each: 3xTF32 with round-to-nearest group sums),
+    each bit-equal from run to run; the forward timed at this shape beside
+    ``logsumexp(h @ W.T + b)``; the backward's plan (chunks, items, K ranges,
+    waves), scratch bytes and ptxas lines, then its CUDA-event times: all
+    three outputs, dh alone and dw with db alone, each beside the chunked
+    cuBLAS route (float32, TF32 off) of its outputs, the plain version and
+    the bound (the smaller of the float32 CUDA-core and the 3xTF32
+    tensor-core routes of its products), and its kernels' device ms from a
+    profiler trace of one call."""
+    import ctypes
+
     import torch
 
+    from lyricalignment_tpu_torch import kernels
     from lyricalignment_tpu_torch.ops import viterbi
 
     g = torch.Generator(device=dev).manual_seed(21)
@@ -1000,7 +1027,7 @@ def phase_train_lse_bwd(dev):
     w_full = torch.randn(C_CTC, 768, device=dev, generator=g) * 768 ** -0.5
     b_full = torch.randn(C_CTC, device=dev, generator=g)
     gl = torch.randn(ROWS_FUSED, device=dev, generator=g) / ROWS_FUSED
-    rows, timed = [], {}
+    timed, errs_all = {}, []
     for first, name in ((1, "CE w[1:21128]"), (0, "CTC w[0:21128]")):
         last = C_CTC - 1
         w, b = w_full[first:last], b_full[first:last]
@@ -1014,27 +1041,24 @@ def phase_train_lse_bwd(dev):
         if not (fwd_err <= 2e-5 and fwd_same):
             raise AssertionError(f"the row LSE disagrees with float64 ({name})")
         del exact
-        dh = viterbi.row_lse_bwd_dh(h, w, b, lse, gl)
-        dw, db = viterbi.row_lse_bwd_dw(h, w, b, lse, gl)
+        got = viterbi.row_lse_bwd(h, w, b, lse, gl)
         ref = viterbi.row_lse_bwd_plain(h.double(), w.double(), b.double(), lse.double(),
                                         gl.double())
-        rels = [rel_l2(x, y) for x, y in zip((dh, dw, db), ref)]
-        errs = [(x.double() - y).abs().max().item() for x, y in zip((dh, dw, db), ref)]
-        same = (torch.equal(dh, viterbi.row_lse_bwd_dh(h, w, b, lse, gl))
-                and all(torch.equal(x, y) for x, y in
-                        zip((dw, db), viterbi.row_lse_bwd_dw(h, w, b, lse, gl))))
-        del ref
+        rels = [rel_l2(x, y) for x, y in zip(got, ref)]
+        errs = [(x.double() - y).abs().max().item() for x, y in zip(got, ref)]
+        same = all(torch.equal(x, y) for x, y in zip(got, viterbi.row_lse_bwd(h, w, b, lse, gl)))
+        del ref, got
         ok = max(rels) <= 1e-5 and same
-        log(f"[train-lse-bwd] {name}: rel_l2 dh/dw/db {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} "
-            f"(<= 1e-5 against float64), max_abs {max(errs):.3e}; two runs bit-equal: {same} "
-            f"{'OK' if ok else 'FAIL'}")
+        log(f"[train-lse-bwd] {name}: la_row_lse_bwd rel_l2 dh/dw/db "
+            f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} (<= 1e-5 against float64), max_abs "
+            f"{max(errs):.3e}; two runs bit-equal: {same} {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the row LSE backward disagrees with float64 ({name})")
-        timed[name] = (w, b, lse, max(errs))
+        timed[name] = (w, b, lse)
+        errs_all.append(max(errs))
 
-    # times at the CE slice: the forward, each backward kernel, the chunked
-    # cuBLAS route of its outputs, the whole plain version
-    w, b, lse, err = timed["CE w[1:21128]"]
+    # times at the CE slice: the forward, then the backward's plan and times
+    w, b, lse = timed["CE w[1:21128]"]
     cols = w.shape[0]
     flops = 2.0 * ROWS_FUSED * 768 * cols
     ms = time_ms(lambda: viterbi.row_lse(h, w, b), reps=5)
@@ -1046,6 +1070,21 @@ def phase_train_lse_bwd(dev):
         f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} (logsumexp(h @ W.T + b)) "
         f"bound_ms={min(f32_ms, tf32_ms):.4f} ({bound_by}, 3xTF32; float32 CUDA cores "
         f"{f32_ms:.4f}); {min(f32_ms, tf32_ms) / ms:.3f} of the bound")
+
+    lib = kernels.library()
+    plan = (ctypes.c_longlong * 7)()
+    if lib.la_row_lse_bwd_plan(ROWS_FUSED, 768, cols, plan) != 0:
+        raise AssertionError("la_row_lse_bwd_plan failed")
+    sms, chunks, chunk, p_items, dh_ranges, dh_items, dw_items = list(plan)
+    scratch_mb = 4 * lib.la_row_lse_bwd_scratch_floats(ROWS_FUSED, 768, cols) / 1e6
+    log(f"[train-lse-bwd] la_row_lse_bwd plan on {sms} SMs: {chunks} chunks of {chunk} "
+        f"columns (the last {cols - (chunks - 1) * chunk}); a full chunk's p kernel "
+        f"{p_items} items of 128 x 128 ({p_items / sms:.2f} waves), dh {dh_items} items of "
+        f"128 x 64 in {dh_ranges} K ranges ({dh_items / sms:.2f} waves), dw {dw_items} items "
+        f"of 128 x 64 ({dw_items / sms:.2f} waves); scratch {scratch_mb:.1f} MB")
+    for part in ("p", "dh", "dw, db"):
+        log(f"[train-lse-bwd] ptxas {part}: "
+            f"{ptxas_report('lse.cu', LSE_BWD_PARTS[part][1])}")
 
     def route_dh():
         dh = torch.zeros_like(h)
@@ -1064,32 +1103,46 @@ def phase_train_lse_bwd(dev):
         return dw, db
 
     plain_ms = time_ms(lambda: viterbi.row_lse_bwd_plain(h, w, b, lse, gl), reps=3)
-    for kernel, fn, route, out_bytes in (
-            ("row_lse_bwd_dh", lambda: viterbi.row_lse_bwd_dh(h, w, b, lse, gl), route_dh,
-             4 * ROWS_FUSED * 768),
-            ("row_lse_bwd_dw", lambda: viterbi.row_lse_bwd_dw(h, w, b, lse, gl), route_dw,
-             4 * (cols * 768 + cols))):
-        ms = time_ms(fn, reps=5)
-        route_ms = time_ms(route, reps=3)
-        # two products each: the logits again, then dh (or dw); inputs read
-        # once. Two routes to the same work, as row 3's: float32 on the CUDA
-        # cores or three TF32 products a product on the tensor cores; the
-        # bound is the smaller
-        nbytes = 4 * (h.numel() + w.numel() + b.numel() + 2 * ROWS_FUSED) + out_bytes
-        f32_ms, _ = bound(2 * flops, PEAK_F32, nbytes)
-        tf32_ms, bound_by = bound(3 * 2 * flops, PEAK_TF32, nbytes)
-        bound_ms = min(f32_ms, tf32_ms)
-        log(f"[train-lse-bwd] {kernel} rows={ROWS_FUSED} feat=768 cols={cols}: kernel_ms={ms:.4f} "
-            f"chunked cuBLAS route ms={route_ms:.4f} plain_ms (dh, dw and db)={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}, 3xTF32; float32 CUDA cores "
-            f"{f32_ms:.4f}, {f32_ms / ms:.3f} of it); {2 * flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{bound_ms / ms:.3f} of the bound; ptxas: {ptxas_report('lse.cu', kernel + '_kernel')}")
-        rows.append(dict(name=kernel, route="cuda", source="lyricalignment_tpu_torch/csrc/lse.cu",
-                         replaces="lyricalignment_tpu/ops/viterbi.py:245 (jax.checkpoint over "
-                                  "_chunked_lse's scan, differentiated by autodiff)",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=route_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-    return rows
+    route_ms = {"dh alone": time_ms(route_dh, reps=3), "dw, db alone": time_ms(route_dw, reps=3)}
+    route_ms["dh, dw, db"] = route_ms["dh alone"] + route_ms["dw, db alone"]
+    in_bytes = 4 * (h.numel() + w.numel() + b.numel() + 2 * ROWS_FUSED)
+    times = {}
+    # (outputs, needs, the products they take, their bytes)
+    for label, needs, products, out_bytes in (
+            ("dh, dw, db", (True, True, True), 3, 4 * (ROWS_FUSED * 768 + cols * 769)),
+            ("dh alone", (True, False, False), 2, 4 * ROWS_FUSED * 768),
+            ("dw, db alone", (False, True, True), 2, 4 * cols * 769)):
+        k_ms = time_ms(lambda: viterbi.row_lse_bwd(h, w, b, lse, gl, needs), reps=5)
+        f32_ms, _ = bound(products * flops, PEAK_F32, in_bytes + out_bytes)
+        tf32_ms, by = bound(3 * products * flops, PEAK_TF32, in_bytes + out_bytes)
+        times[label] = (k_ms, min(f32_ms, tf32_ms), by)
+        log(f"[train-lse-bwd] la_row_lse_bwd {label} rows={ROWS_FUSED} feat=768 cols={cols}: "
+            f"kernel_ms={k_ms:.4f} chunked cuBLAS route ms={route_ms[label]:.4f} "
+            f"({route_ms[label] / k_ms:.2f}x) plain_ms={plain_ms:.4f} "
+            f"bound_ms={min(f32_ms, tf32_ms):.4f} ({by}, {products} products in 3xTF32; "
+            f"float32 CUDA cores {f32_ms:.4f}); {products * flops / k_ms / 1e9:.1f} TFLOP/s, "
+            f"{min(f32_ms, tf32_ms) / k_ms:.3f} of the bound")
+    pair_ms, pair_bound, pair_by = times["dh, dw, db"]
+    try:
+        trace = _device_trace(lambda: viterbi.row_lse_bwd(h, w, b, lse, gl))
+    except Exception as exc:  # noqa: BLE001 - CUPTI may be unavailable
+        log(f"[train-lse-bwd] kernels of one call: not measured: {type(exc).__name__}: {exc}")
+        trace = None
+    if trace is not None:
+        busy, by_name = trace
+        parts = {}
+        for kname, (k_ms, n) in by_name.items():
+            part = _lse_bwd_part(kname) or kname[:60]
+            t, c = parts.get(part, (0.0, 0))
+            parts[part] = (t + k_ms, c + n)
+        log(f"[train-lse-bwd] kernels of one call (torch.profiler device ms, launches): "
+            f"{json.dumps({k: [round(t, 4), c] for k, (t, c) in parts.items()})}; device busy "
+            f"{busy:.4f} ms")
+    return [dict(name="row_lse_bwd", route="cuda", source="lyricalignment_tpu_torch/csrc/lse.cu",
+                 replaces="lyricalignment_tpu/ops/viterbi.py:245 (jax.checkpoint over "
+                          "_chunked_lse's scan, differentiated by autodiff)",
+                 max_abs_err=max(errs_all), ms=pair_ms, plain_ms=plain_ms, library_ms=None,
+                 route_ms=route_ms["dh, dw, db"], bound_ms=pair_bound, bound_by=pair_by)]
 
 
 def _ctc_inputs(dev, b, t, n, kinds, seed):
@@ -1473,10 +1526,10 @@ def phase_train_cli(dev, tmp):
 
 FUSED_STEPS = 2
 # a micro-batch of the fused losses adds the row LSE twice (CE with
-# the silence head, CTC), each of its backward kernels twice, and the
-# reduced CTC once each way
-FUSED_KERNELS = dict(TRAIN_KERNELS, la_row_lse=2, la_row_lse_bwd_dh=2, la_row_lse_bwd_dw=2,
-                     la_ctc_reduced_fwd=1, la_ctc_reduced_bwd=1)
+# the silence head, CTC), its backward entry twice, and the reduced CTC
+# once each way
+FUSED_KERNELS = dict(TRAIN_KERNELS, la_row_lse=2, la_row_lse_bwd=2, la_ctc_reduced_fwd=1,
+                     la_ctc_reduced_bwd=1)
 
 
 def _ctc_against_float64(model, micro, vocab):
@@ -1642,8 +1695,38 @@ def phase_train_fused(dev, card, medium):
         raise AssertionError(f"fused train steps launched {counts}, expected {expected}")
     if not all(math.isfinite(v) for row in all_losses for v in row.values()):
         raise AssertionError("non-finite fused training loss")
+    try:
+        trace = _device_trace(lambda: step_fn(state, stacked))
+    except Exception as exc:  # noqa: BLE001 - CUPTI may be unavailable
+        log(f"[train-fused] traced step: not measured: {type(exc).__name__}: {exc}")
+        trace = None
+    if trace is not None:
+        busy, by_name = trace
+        parts = {}
+        for kname, (k_ms, n) in by_name.items():
+            part = _fused_part(kname)
+            if part is not None:
+                t, c = parts.get(part, (0.0, 0))
+                parts[part] = (t + k_ms, c + n)
+        log(f"[train-fused] one traced fused step: device busy {busy:.1f} ms; the fused losses' "
+            f"kernels {sum(t for t, _ in parts.values()):.2f} ms (device ms, launches: "
+            f"{json.dumps({k: [round(t, 3), c] for k, (t, c) in parts.items()})})")
     del state, step_fn, tx
     return counts
+
+
+def _fused_part(name):
+    """The fused losses' kernel that a profiler name belongs to, or None."""
+    flat = name.replace(" ", "")
+    for part, keys in (("la_row_lse", ("row_lse_kernel", "merge_kernel")),
+                       ("la_ctc_reduced_fwd", ("ctc_fwd_kernel",)),
+                       ("la_ctc_reduced_bwd", ("ctc_bwd_kernel",))):
+        if any(k in flat for k in keys):
+            return part
+    part = _lse_bwd_part(name)
+    if part == "w_lo":
+        return "w_lo (la_row_lse and la_row_lse_bwd)"
+    return None if part is None else f"la_row_lse_bwd {part}"
 
 
 def _report_cli_trace(path):

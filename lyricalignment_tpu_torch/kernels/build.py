@@ -60,12 +60,10 @@ SIGNATURES: Dict[str, list] = {
     # la_row_lse_scratch_floats(rows, feat, cols) floats), rows, feat, cols,
     # stream
     "la_row_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # h, w, b (the slice's first column), lse, g, dh, scratch (of
-    # la_row_lse_bwd_scratch_floats(rows, feat, cols) floats), rows, feat,
-    # cols, stream
-    "la_row_lse_bwd_dh": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # h, w, b, lse, g, dw, db, rows, feat, cols, stream
-    "la_row_lse_bwd_dw": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # h, w, b (the slice's first column), lse, g, dh, dw, db (each or null),
+    # scratch (of la_row_lse_bwd_scratch_floats(rows, feat, cols) floats),
+    # rows, feat, cols, stream
+    "la_row_lse_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # blank_lp, label_lp, labels, valid (u8), alphas, nll, batch, frames,
     # labels_max, stream
     "la_ctc_reduced_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -180,6 +178,8 @@ def library() -> ctypes.CDLL:
             lib.la_viterbi_scratch_words.restype = ctypes.c_longlong
             lib.la_row_lse_bwd_scratch_floats.argtypes = [_I, _I, _I]
             lib.la_row_lse_bwd_scratch_floats.restype = ctypes.c_longlong
+            lib.la_row_lse_bwd_plan.argtypes = [_I, _I, _I, _P]
+            lib.la_row_lse_bwd_plan.restype = ctypes.c_int
             lib.la_ctc_max_labels.argtypes = []
             lib.la_ctc_max_labels.restype = ctypes.c_int
             _lib = lib

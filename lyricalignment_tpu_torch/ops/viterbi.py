@@ -6,10 +6,11 @@ Port of ``lyricalignment_tpu/ops/viterbi.py``. Two kernels carry it:
 * the streaming row log-sum-exp of the classifier logits (``csrc/lse.cu``,
   counterpart of the Pallas ``_lse_kernel``), so the fused path never writes
   the [B, T, C] logits; :func:`row_lse_plain` is the chunked online form of
-  ``_chunked_lse``. Its gradient, for the fused training losses, is a pair
-  of backward kernels in the same file that recompute the logits a tile at
-  a time (the counterpart of ``jax.checkpoint`` over ``_chunked_lse``'s
-  scan); :func:`row_lse_bwd_plain` is the chunked plain version of it;
+  ``_chunked_lse``. Its gradient, for the fused training losses, is one
+  entry of the same file that recomputes the logits a column chunk at a
+  time and forms dh and dw from that chunk's p (the counterpart of
+  ``jax.checkpoint`` over ``_chunked_lse``'s scan);
+  :func:`row_lse_bwd_plain` is the chunked plain version of it;
 * the DP with backtrace (``csrc/viterbi.cu``, counterpart of the Pallas
   ``viterbi_pallas._kernel``) with ``_viterbi_dp``'s exact transition and
   tie-breaking rules (`viterbi.py:13-18`); :func:`viterbi_dp_plain` is the
@@ -122,37 +123,30 @@ def row_lse_bwd_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lse: to
     return dh, dw, db
 
 
-def row_lse_bwd_dh(h, w, b, lse, g) -> torch.Tensor:
-    """dh of :func:`row_lse_bwd_plain`: the CUDA kernel ``la_row_lse_bwd_dh``
-    for CUDA tensors, the plain version for CPU ones."""
+def row_lse_bwd(h, w, b, lse, g, needs=(True, True, True)):
+    """(dh, dw, db) of :func:`row_lse_bwd_plain`, each None where ``needs``
+    says it is not wanted: the CUDA entry ``la_row_lse_bwd`` for CUDA
+    tensors (one launch: p a column chunk at a time, then dh and dw from it),
+    the plain version for CPU ones."""
     if not h.is_cuda:
         kernels.plain_or_raise("row_lse_bwd", h)
-        return row_lse_bwd_plain(h, w, b, lse, g)[0]
+        return tuple(x if need else None
+                     for x, need in zip(row_lse_bwd_plain(h, w, b, lse, g), needs))
     rows, feat, cols = _check_bwd(h, w, b, lse, g)
-    dh = torch.empty_like(h)
-    if rows:
+    dh = torch.empty_like(h) if needs[0] else None
+    dw = torch.empty((cols, feat), dtype=torch.float32, device=h.device) if needs[1] else None
+    db = torch.empty((cols,), dtype=torch.float32, device=h.device) if needs[2] else None
+    if any(needs):
+        # w's split and transposed copies for one chunk, h's transposed
+        # copies, p and p^T of one chunk, dh's partial sums
         scratch = torch.empty(
             (kernels.library().la_row_lse_bwd_scratch_floats(rows, feat, cols),),
             dtype=torch.float32, device=h.device)
-        kernels.launch("la_row_lse_bwd_dh", h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                       lse.data_ptr(), g.data_ptr(), dh.data_ptr(), scratch.data_ptr(),
-                       rows, feat, cols, kernels.stream_of(h))
-    return dh
-
-
-def row_lse_bwd_dw(h, w, b, lse, g):
-    """(dw, db) of :func:`row_lse_bwd_plain`: the CUDA kernel
-    ``la_row_lse_bwd_dw`` for CUDA tensors, the plain version for CPU ones."""
-    if not h.is_cuda:
-        kernels.plain_or_raise("row_lse_bwd", h)
-        return row_lse_bwd_plain(h, w, b, lse, g)[1:]
-    rows, feat, cols = _check_bwd(h, w, b, lse, g)
-    dw = torch.empty((cols, feat), dtype=torch.float32, device=h.device)
-    db = torch.empty((cols,), dtype=torch.float32, device=h.device)
-    kernels.launch("la_row_lse_bwd_dw", h.data_ptr(), w.data_ptr(), b.data_ptr(),
-                   lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                   rows, feat, cols, kernels.stream_of(h))
-    return dw, db
+        kernels.launch("la_row_lse_bwd", h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                       lse.data_ptr(), g.data_ptr(), *(None if x is None else x.data_ptr()
+                                                       for x in (dh, dw, db)),
+                       scratch.data_ptr(), rows, feat, cols, kernels.stream_of(h))
+    return dh, dw, db
 
 
 def _check_bwd(h, w, b, lse, g):
@@ -165,16 +159,15 @@ def _check_bwd(h, w, b, lse, g):
     if (w.shape[1] != feat or b.shape[0] != cols or cols == 0
             or any(t.shape[0] != rows for t in (lse, g))):
         raise ValueError("row_lse_bwd: shapes of h, w, b, lse, g do not agree")
-    if feat % 16 or feat > 768 or any(t.data_ptr() % 16 for t in (h, w)):
-        raise ValueError("row_lse_bwd: needs feat % 16 == 0, feat <= 768 and 16-byte "
-                         "aligned h, w")
+    if feat % 4 or any(t.data_ptr() % 16 for t in (h, w)):
+        raise ValueError("row_lse_bwd: needs feat % 4 == 0 and 16-byte aligned h, w")
     return rows, feat, cols
 
 
 class _RowLSE(torch.autograd.Function):
     """The row LSE with its gradient: the forward saves (h, w, b, lse); the
-    backward recomputes the logits (the backward kernels, or
-    :func:`row_lse_bwd_plain` on the CPU), so no [N, C] tensor is kept."""
+    backward recomputes the logits a column chunk at a time
+    (:func:`row_lse_bwd`), so no [N, C] tensor is kept."""
 
     @staticmethod
     def forward(ctx, h, w, b):
@@ -185,22 +178,13 @@ class _RowLSE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, w, b, lse = ctx.saved_tensors
-        g = g.contiguous()
-        dh = dw = db = None
-        if not h.is_cuda:
-            dh, dw, db = row_lse_bwd_plain(h, w, b, lse, g)
-        else:
-            if ctx.needs_input_grad[0]:
-                dh = row_lse_bwd_dh(h, w, b, lse, g)
-            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-                dw, db = row_lse_bwd_dw(h, w, b, lse, g)
-        return dh, dw, db
+        return row_lse_bwd(h, w, b, lse, g.contiguous(), ctx.needs_input_grad)
 
 
 def row_lse(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """log sum_c exp(h @ w.T + b) per row, without materialising the logits,
     and its gradient: the kernel ``la_row_lse`` forward and the backward
-    pair for CUDA tensors, :func:`row_lse_plain` and
+    entry ``la_row_lse_bwd`` for CUDA tensors, :func:`row_lse_plain` and
     :func:`row_lse_bwd_plain` for CPU ones. ``w`` may be a row slice of a
     larger weight (the CTC syllable columns in serving; ``fc.weight[1:vocab]``
     of the CE, ``[:vocab]`` of the CTC in training); the gradient reaches

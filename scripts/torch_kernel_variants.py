@@ -2,16 +2,19 @@
 """Times variants of the port's row log-sum-exp kernel
 (``lyricalignment_tpu_torch/csrc/lse.cu``), log-mel kernel (``csrc/mel.cu``)
 and Viterbi DP (``csrc/viterbi.cu``) on one NVIDIA GPU, at the alignment
-main path's shapes (the DP also at 16 x 3000 frames x 128 labels):
+main path's shapes (the DP also at 16 x 3000 frames x 128 labels), and of
+the row log-sum-exp's backward (``la_row_lse_bwd``, the ``bwd`` family) at
+the fused training shape (3000 rows, feat 768, 21127 columns):
 
-    python3 scripts/torch_kernel_variants.py [lse | mel | viterbi | VARIANT ...]
+    python3 scripts/torch_kernel_variants.py [lse | mel | viterbi | bwd | VARIANT ...]
 
 Each variant is the kernel source with the text substitutions listed in
 ``VARIANTS`` below, compiled on its own (one nvcc each, all started
 together) from a copy of ``csrc/`` with the source's own flags. ``lse`` /
 ``mel`` / ``viterbi`` name every variant of one source; with no arguments
 every variant runs. A variant is checked against the kernel's plain version
-(``row_lse_plain``, ``log10_mel_plain``, ``viterbi_dp_plain``: exactly) and
+(``row_lse_plain``, ``log10_mel_plain``, ``viterbi_dp_plain``: exactly;
+``row_lse_bwd_plain`` in float64 at rel-L2 1e-5) and
 then timed in two rounds, beside the one PyTorch call that computes the
 same function where there is one. The variants marked "timed only" leave
 out a part of the work to show what it costs; their outputs are wrong on purpose. ptxas'
@@ -65,31 +68,40 @@ __device__ __forceinline__ void wgmma_m64n{n}k8_tf32_{a_from}(float (&d)[{nd}], 
 
 _HELPERS_AT = "__device__ __forceinline__ float ex2_ftz(float x) {"
 _STAGES = "constexpr int kStages = 4; "
-# A read by the tensor cores from the stage's h tile (hi and lo alike: timed only)
+# A read by the tensor cores from the stage's h tile (hi and lo alike: timed
+# only); the forward's call site alone (its indentation), the backward keeps
+# issue_half
 _A_SMEM = [
     ("hopper.cuh", _HELPERS_AT, tf32_wgmma(128, "ss") + _HELPERS_AT),
+    ("// run += acc, rounded to nearest",
+     "__device__ __forceinline__ void issue_half_ss(float (&acc)[64], uint64_t desc_a,\n"
+     "                                              uint64_t desc_hi, uint64_t desc_lo, int kk0,\n"
+     "                                              int accumulate) {\n"
+     "  fence_regs(acc);\n  wgmma_fence();\n"
+     "#pragma unroll\n  for (int j = 0; j < 2; ++j) {\n    const int kk = kk0 + j;\n"
+     "    wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, desc_hi + 2 * kk, accumulate || j > 0);\n"
+     "    wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, desc_lo + 2 * kk, 1);\n"
+     "    wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, desc_hi + 2 * kk, 1);\n  }\n"
+     "  wgmma_commit();\n}\n\n// run += acc, rounded to nearest"),
     ("          const char* row_ptr =",
      "          const uint64_t desc_a = sw128_desc(sm.h[st] + 64 * (wg - 1) * kBK, 16, 1024);\n"
      "          const char* row_ptr ="),
-    ("issue_half(acc, a_hi[half], a_lo[half], desc_hi,", "issue_half(acc, desc_a, desc_hi,"),
-    ("issue_half(float (&acc)[kBN / 2], uint32_t (&hi)[2][4],\n"
-     "                                           uint32_t (&lo)[2][4], uint64_t desc_hi,",
-     "issue_half(float (&acc)[kBN / 2], uint64_t desc_a, uint64_t desc_hi,"),
-    ("  fence_a(hi, lo);\n  wgmma_fence();", "  wgmma_fence();"),
-    ("wgmma_m64n128k8_tf32_rs(acc, lo[j], ", "wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, "),
-    ("wgmma_m64n128k8_tf32_rs(acc, hi[j], ", "wgmma_m64n128k8_tf32_ss(acc, desc_a + 2 * kk, "),
+    ("            issue_half(acc, a_hi[half], a_lo[half], desc_hi,",
+     "            issue_half_ss(acc, desc_a, desc_hi,"),
 ]
-_LO_PRODUCTS = [("    wgmma_m64n128k8_tf32_rs(acc, lo[j], desc_hi + 2 * kk, accumulate || j > 0);\n"
-                 "    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_lo + 2 * kk, 1);\n"
-                 "    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, 1);",
-                 "    wgmma_m64n128k8_tf32_rs(acc, hi[j], desc_hi + 2 * kk, accumulate || j > 0);")]
+# one TF32 product in place of three (in issue_half: the backward's too)
+_LO_PRODUCTS = [("    wgmma_tf32(acc, lo[j], desc_hi + 2 * kk, accumulate || j > 0);\n"
+                 "    wgmma_tf32(acc, hi[j], desc_lo + 2 * kk, 1);\n"
+                 "    wgmma_tf32(acc, hi[j], desc_hi + 2 * kk, 1);",
+                 "    wgmma_tf32(acc, hi[j], desc_hi + 2 * kk, accumulate || j > 0);")]
 # a tile's products summed in the wgmma accumulator, as the kernel was
 # before each group started a fresh one (the tensor cores' truncating adds;
 # the wait after each group stays)
 _ONE_ACCUMULATOR = [
     ("              add_group(run, acc);\n", ""),
-    ("issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, 0);",
-     "issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, c > 0 || half > 0);")]
+    ("            issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, 0);",
+     "            issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half,\n"
+     "                       c > 0 || half > 0);")]
 
 # the scratch-size function of a variant that keeps more after the packed
 # backpointers: the packed words whether or not they flush, then `extra`
@@ -141,6 +153,32 @@ VARIANTS = {
     "lse_16_ranges": ("lse.cu", False, [
         ("const int ranges = plan_ranges(row_tiles, col_tiles, sms);",
          "const int ranges = col_tiles < kMaxRanges ? col_tiles : kMaxRanges;")]),
+    # the backward (la_row_lse_bwd): its dh or dw product on 128-column
+    # tiles, dh in one K range, one accumulator a tile in its products (the
+    # numerics its groups of six repair), without p's epilogue (timed only)
+    "bwd_as_built": ("lse.cu", False, []),
+    "bwd_dh_n128": ("lse.cu", False, [("constexpr int kDhN = 64; ", "constexpr int kDhN = 128; ")]),
+    "bwd_dw_n128": ("lse.cu", False, [("constexpr int kDwN = 64; ", "constexpr int kDwN = 128; ")]),
+    "bwd_dh_one_range": ("lse.cu", False, [
+        ("  for (int r = 1; r <= cap && r <= stages; ++r) {", "  for (int r = 1; r <= 1; ++r) {")]),
+    "bwd_one_accumulator": ("lse.cu", True, [
+        ("            add_group(run, acc);\n            if (half == 0) {",
+         "            if (half == 0) {"),
+        ("\n          issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half, 0);",
+         "\n          issue_half(acc, a_hi[half], a_lo[half], desc_hi, desc_lo, 2 * half,\n"
+         "                     s > first || half > 0);")]),
+    "bwd_no_p_epilogue": ("lse.cu", True, [
+        ("        store_p(run, ep, r0, c0, m, n);",
+         "        if (run[0] == 1234.5f) ep.p[r0] = run[1];")]),
+    # p by ex2.approx of the scaled exponent in place of expf (tried and left
+    # out: no gain, p's epilogue is its stores)
+    "bwd_p_ex2": ("lse.cu", False, [
+        ("gg[i] * expf(run[4 * j + 2 * i] + b0 - lg[i])",
+         "gg[i] * ex2_ftz((run[4 * j + 2 * i] + b0 - lg[i]) * kLog2e)"),
+        ("gg[i] * expf(run[4 * j + 2 * i + 1] + b1 - lg[i])",
+         "gg[i] * ex2_ftz((run[4 * j + 2 * i + 1] + b1 - lg[i]) * kLog2e)")]),
+    # rings of 4 stages for the 64-column products (as the 128-column ones)
+    "bwd_ring_4": ("lse.cu", False, [("kStages = kTN == 128 ? 4 : 6;", "kStages = 4;")]),
     "mel_as_built": ("mel.cu", False, []),
     # frames a block: 16 (40 KB of shared memory), 64 (148 KB: one block an SM)
     "mel_tile_16": ("mel.cu", False, [("constexpr int kTile = 32; ", "constexpr int kTile = 16; ")]),
@@ -211,7 +249,12 @@ VARIANTS = {
     "viterbi_phase_clocks": ("viterbi.cu", False, _CLOCKS),
 }
 LAUNCHERS = {"lse.cu": "la_row_lse", "mel.cu": "la_log10_mel", "viterbi.cu": "la_viterbi"}
-KERNEL_NAMES = ("row_lse_kernel", "log10_mel_kernel", "viterbi_kernel")
+KERNEL_NAMES = ("row_lse_kernel", "bwd_gemm_kernel", "log10_mel_kernel", "viterbi_kernel")
+FAMILIES = ("lse", "mel", "viterbi", "bwd")
+
+
+def launcher(name: str) -> str:
+    return "la_row_lse_bwd" if name.startswith("bwd_") else LAUNCHERS[VARIANTS[name][0]]
 
 
 def patched_csrc(name: str, root: str) -> str:
@@ -260,9 +303,13 @@ def compile_variants(names, root):
                                       for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x))
         print(f"[{name}] ptxas: {found}", flush=True)
         lib = ctypes.CDLL(so)
-        fn = getattr(lib, LAUNCHERS[VARIANTS[name][0]])
-        fn.argtypes = build.SIGNATURES[LAUNCHERS[VARIANTS[name][0]]]
+        fn = getattr(lib, launcher(name))
+        fn.argtypes = build.SIGNATURES[launcher(name)]
         fn.restype = ctypes.c_int
+        if name.startswith("bwd_"):
+            lib.la_row_lse_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+            lib.la_row_lse_bwd_scratch_floats.restype = ctypes.c_longlong
+            lib.la_row_lse_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         if VARIANTS[name][0] == "viterbi.cu":
             lib.la_viterbi_scratch_words.argtypes = [ctypes.c_int] * 3
             lib.la_viterbi_scratch_words.restype = ctypes.c_longlong
@@ -430,21 +477,77 @@ def time_viterbi(libs):
         print(f"[{name}] T={t}: ms {[round(x, 4) for x in ms]}")
 
 
+def time_bwd(libs):
+    """Each backward variant at the fused training shape (3000 rows, feat
+    768, the CE slice's 21127 columns): dh, dw and db against
+    row_lse_bwd_plain in float64 (rel-L2 1e-5), its plan, then timed in two
+    rounds beside the chunked cuBLAS routes of chip_smoke.py."""
+    import torch
+
+    from chip_smoke import C_CTC, ROWS_FUSED, rel_l2, time_ms
+    from lyricalignment_tpu_torch.ops import viterbi
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows, feat = ROWS_FUSED, 768
+    h = torch.randn(rows, feat, device="cuda", generator=g) * 0.5
+    w = (torch.randn(C_CTC, feat, device="cuda", generator=g) * feat ** -0.5)[1:-1]
+    b = torch.randn(C_CTC, device="cuda", generator=g)[1:-1]
+    gl = torch.randn(rows, device="cuda", generator=g) / rows
+    cols = w.shape[0]
+    lse = viterbi.row_lse(h, w, b)
+    ref = viterbi.row_lse_bwd_plain(h.double(), w.double(), b.double(), lse.double(), gl.double())
+    outs = (torch.empty_like(h), torch.empty_like(w), torch.empty_like(b))
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for rnd in range(2):
+        for name, lib in libs.items():
+            scratch = torch.empty(lib.la_row_lse_bwd_scratch_floats(rows, feat, cols),
+                                  device="cuda")
+
+            def call():
+                return lib.la_row_lse_bwd(h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                          lse.data_ptr(), gl.data_ptr(),
+                                          *(x.data_ptr() for x in outs), scratch.data_ptr(),
+                                          rows, feat, cols, stream)
+            if call() != 0:
+                raise RuntimeError(f"variant {name}: launch refused")
+            torch.cuda.synchronize()
+            if rnd == 0:
+                rels = [rel_l2(x, y) for x, y in zip(outs, ref)]
+                ok = max(rels) <= 1e-5
+                plan = (ctypes.c_longlong * 7)()
+                lib.la_row_lse_bwd_plan(rows, feat, cols, plan)
+                timed_only = VARIANTS[name][1]
+                print(f"[{name}] rel_l2 dh/dw/db {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} "
+                      f"{'(timed only)' if timed_only else 'OK' if ok else 'FAIL'}; plan (SMs, "
+                      f"chunks, chunk, p items, dh ranges, dh items, dw items) {list(plan)}",
+                      flush=True)
+                if not ok and not timed_only:
+                    raise AssertionError(f"variant {name} disagrees with row_lse_bwd_plain")
+            times.setdefault(name, []).append(time_ms(call, reps=5, warmup=1))
+    ops = 3 * 2.0 * rows * feat * cols
+    for name, ms in times.items():
+        print(f"[{name}] ms {[round(x, 4) for x in ms]} -> {ops / min(ms) / 1e9:.1f} TFLOP/s "
+              f"of the function's {ops / 1e9:.1f} GFLOP")
+
+
 def main(argv) -> int:
     import torch
 
-    families = {f: [n for n in VARIANTS if n.startswith(f + "_")]
-                for f in ("lse", "mel", "viterbi")}
+    families = {f: [n for n in VARIANTS if n.startswith(f + "_")] for f in FAMILIES}
     names = [n for arg in (argv or list(families)) for n in families.get(arg, [arg])]
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory() as root:
         libs = compile_variants(names, root)
-        lse = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "lse.cu"}
+        lse = {n: lib for n, lib in libs.items() if n.startswith("lse_")}
+        bwd = {n: lib for n, lib in libs.items() if n.startswith("bwd_")}
         mel = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "mel.cu"}
         if lse:
             time_lse(lse)
+        if bwd:
+            time_bwd(bwd)
         if mel:
             time_mel(mel)
         dp = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "viterbi.cu"}

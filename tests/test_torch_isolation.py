@@ -96,14 +96,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
         viterbi_dp(meta(1, 4, 2), meta(1, 4), meta(1, 2, dtype=torch.int32),
                    meta(1, dtype=torch.int32), meta(1, dtype=torch.int32))
     from lyricalignment_tpu_torch.ops.ctc import ctc_reduced_bwd, ctc_reduced_fwd
-    from lyricalignment_tpu_torch.ops.viterbi import row_lse_bwd_dh, row_lse_bwd_dw
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse_bwd
 
     with pytest.raises(ValueError, match="no kernel"):
         row_lse(meta(4, 16).requires_grad_(), meta(5, 16), meta(5))
     with pytest.raises(ValueError, match="no kernel"):
-        row_lse_bwd_dh(meta(4, 16), meta(5, 16), meta(5), meta(4), meta(4))
+        row_lse_bwd(meta(4, 16), meta(5, 16), meta(5), meta(4), meta(4))
     with pytest.raises(ValueError, match="no kernel"):
-        row_lse_bwd_dw(meta(4, 16), meta(5, 16), meta(5), meta(4), meta(4))
+        row_lse_bwd(meta(4, 16), meta(5, 16), meta(5), meta(4), meta(4), (False, True, True))
     labels, valid = meta(1, 2, dtype=torch.int32), meta(1, 2, dtype=torch.bool)
     with pytest.raises(ValueError, match="no kernel"):
         ctc_reduced_fwd(meta(1, 4), meta(1, 4, 2), labels, valid)

@@ -8,6 +8,11 @@ a machine without a GPU can check it:
   accumulation (each group of six products in a fresh accumulator whose
   adds truncate, as the tensor cores' do, then added into a running sum
   rounded to nearest) against one accumulator for all of a row's products;
+* the same arithmetic in the backward of ``csrc/lse.cu``
+  (``la_row_lse_bwd``): p formed a chunk of columns at a time, then dh and
+  dw as 3xTF32 products of p (or p^T) split in registers and the transposed
+  w (or h) split, with dh's K ranges and chunks added in order, against
+  ``row_lse_bwd_plain`` in float64, and against one accumulator a chunk;
 * the tables of ``ops/mel.py:_fft_tables`` driven through the staged
   transform of ``csrc/mel.cu`` (a frame's 400 windowed samples as 200
   complex points, 8 x 25, then the even/odd join) in numpy, against
@@ -26,6 +31,7 @@ import torch
 
 from lyricalignment_tpu_torch import HOP_LENGTH, N_FFT
 from lyricalignment_tpu_torch.ops import mel
+from lyricalignment_tpu_torch.ops.viterbi import LSE_CHUNK, row_lse_bwd_plain
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +141,76 @@ def test_groups_of_six_hold_aligned_rows():
     h, w, exact = _aligned_case()
     err = float((torch.logsumexp(_kernel_logits(h, w, 6).double(), -1) - exact).abs().max())
     assert err <= 1.5e-5, err
+
+
+def _kernel_bwd(h, w, b, lse, g, group, ranges=1, with_dw=True):
+    """(dh, dw, db) as ``la_row_lse_bwd`` forms them, a chunk of LSE_CHUNK
+    columns at a time: the p kernel's logits (groups of six), p = g exp(S + b
+    - lse) in float32; dh's chunk split into ``ranges`` K ranges of whole
+    32-column stages, each range's product (A = p, B = the chunk's w^T) added
+    into its own partial in chunk order, the partials summed in range order;
+    dw[chunk] = the product of A = p^T and B = h^T; db[chunk] = the row sums
+    of p^T. Products by ``_kernel_logits``: a fresh accumulator every
+    ``group`` products (None: one for a range's whole K)."""
+    parts, dw, db = [None] * ranges, [], []
+    for c0 in range(0, w.shape[0], LSE_CHUNK):
+        wc, bc = w[c0:c0 + LSE_CHUNK], b[c0:c0 + LSE_CHUNK]
+        p = g[:, None] * torch.exp(_kernel_logits(h, wc, 6) + bc - lse[:, None])
+        stages = -(-wc.shape[0] // 32)
+        for q in range(min(ranges, stages)):
+            k0, k1 = 32 * (q * stages // ranges), 32 * ((q + 1) * stages // ranges)
+            part = _kernel_logits(p[:, k0:k1], wc[k0:k1].T.contiguous(), group)
+            parts[q] = part if parts[q] is None else parts[q] + part
+        if with_dw:
+            dw.append(_kernel_logits(p.T.contiguous(), h.T.contiguous(), group))
+            db.append(p.sum(dim=0))
+    dh = parts[0]
+    for part in parts[1:]:
+        dh = dh + part
+    return dh, (torch.cat(dw) if with_dw else None), (torch.cat(db) if with_dw else None)
+
+
+def _bwd_case(aligned, rows=16, feat=768, cols=LSE_CHUNK + 300, seed=5):
+    """Two chunks of columns at the smoke run's scales, or with rows whose p
+    sits in one column (``_aligned_case``: a top logit of 20 in column r of
+    row r); the float32 lse, g, and the plain backward in float64."""
+    if aligned:
+        h, w, _ = _aligned_case(rows=rows, feat=feat, cols=cols, seed=seed)
+        b = torch.zeros(cols)
+    else:
+        h, w, b, _ = _lse_case(0.5, rows, feat, cols, seed)
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(rows).astype(np.float32))
+    lse = torch.logsumexp(h.double() @ w.double().T + b.double(), dim=-1).float()
+    ref = row_lse_bwd_plain(h.double(), w.double(), b.double(), lse.double(), g.double())
+    return h, w, b, lse, g, ref
+
+
+def _rel(a, b):
+    return float((a.double() - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("ranges", [1, 4])
+@pytest.mark.parametrize("aligned", [False, True])
+def test_backward_arithmetic_holds_float64(aligned, ranges):
+    """The backward's products in 3xTF32 with groups of six, at feat 768 over
+    two chunks, hold rel-L2 1e-5 of the float64 plain version in dh, dw and
+    db (the card test's tolerance), with dh's chunk in one K range or four."""
+    h, w, b, lse, g, ref = _bwd_case(aligned)
+    got = _kernel_bwd(h, w, b, lse, g, 6, ranges)
+    rels = [_rel(x, want) for x, want in zip(got, ref)]
+    assert max(rels) <= 1e-5, rels
+
+
+def test_one_truncating_accumulator_a_chunk_drifts_in_dh():
+    """On rows whose p sits in one column early in the chunk, one accumulator
+    for all of a chunk's K (1584 truncating adds, each dropping up to an ulp
+    of the large running value) misses rel-L2 1e-5 in dh: the groups of six
+    are needed."""
+    h, w, b, lse, g, ref = _bwd_case(True)
+    top = torch.exp(h.double() @ w[:16].double().T - lse[:, None].double()).diagonal()
+    assert float(top.median()) > 0.5
+    dh, _, _ = _kernel_bwd(h, w, b, lse, g, None, with_dw=False)
+    assert _rel(dh, ref[0]) > 1e-5, _rel(dh, ref[0])
 
 
 def test_fft_tables_are_float64_values_rounded_once():
