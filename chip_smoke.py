@@ -63,8 +63,11 @@ NVIDIA GPU (written for the H100, sm_90a):
        from a trace;
    (a'') holds the reduced CTC kernels against the plain recursions at
        B = 2, T = 1500, N = 48 and with an all-padding target and one that
-       cannot fit, timed beside the chain floor (a one-warp probe) and the
-       forward beside ``F.ctc_loss`` on the same reduced emissions;
+       cannot fit; prints their plan and ptxas lines, times each beside its
+       own chain floor (one-warp probes of the forward's _lse3 step and the
+       backward's FMA step), the forward beside ``F.ctc_loss`` on the same
+       reduced emissions and the backward beside ``F.ctc_loss`` forward and
+       backward;
    (b) runs one ``make_train_step`` of a tiny float32 model on the GPU and
        on the CPU (plain versions) and compares losses (rtol 1e-4) and
        updates (at most 1 in 1000 entries off by more than 2e-2 lr);
@@ -924,10 +927,12 @@ def phase_train_kernels(dev):
     return rows
 
 
-# One warp timing `steps` dependent steps of the reduced CTC's recursion as
-# it stands between states: the two neighbours from the lanes below, their
-# max, three exponentials, a log and the adds (_lse3 plus the emission).
-# out[0] = clock64 cycles for all of them (out[1] keeps the result alive).
+# One warp timing `steps` dependent steps of each reduced CTC chain. The
+# forward's as it stands between states: the two neighbours from the lanes
+# below, their max, three exponentials, a log and the adds (_lse3 plus the
+# emission). The backward's, its weights computed off the chain: the two
+# neighbours from the lanes above and three FMAs. out[0] = clock64 cycles
+# for all of them (out[1] keeps the result alive).
 _CTC_STEP_PROBE = r"""
 __global__ void ctc_step_cycles_kernel(int steps, float em, long long* out) {
   float a = -static_cast<float>(threadIdx.x);
@@ -945,16 +950,33 @@ __global__ void ctc_step_cycles_kernel(int steps, float em, long long* out) {
   }
 }
 
-extern "C" int ctc_step_cycles(int steps, long long* out) {
-  ctc_step_cycles_kernel<<<1, 32>>>(steps, -0.5f, out);
+__global__ void ctc_adjoint_cycles_kernel(int steps, float u, long long* out) {
+  float adj = static_cast<float>(threadIdx.x);
+  const long long t0 = clock64();
+  for (int t = 0; t < steps; ++t) {
+    const float x1 = __shfl_down_sync(0xffffffffu, adj, 1);
+    const float x2 = __shfl_down_sync(0xffffffffu, adj, 2);
+    adj = fmaf(u, x2, fmaf(u, x1, u * adj));
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = __float_as_int(adj);
+  }
+}
+
+extern "C" int ctc_step_cycles(int steps, long long* fwd, long long* bwd) {
+  ctc_step_cycles_kernel<<<1, 32>>>(steps, -0.5f, fwd);
+  ctc_adjoint_cycles_kernel<<<1, 32>>>(steps, 0.3f, bwd);
   return static_cast<int>(cudaGetLastError());
 }
 """
 
 
-def ctc_step_cycles(steps: int = 20000) -> float:
-    """SM cycles of one dependent step of the reduced CTC's chain, from
-    ``_CTC_STEP_PROBE`` built with ``ctc.cu``'s flags beside the library."""
+def ctc_step_cycles(steps: int = 20000) -> dict:
+    """SM cycles of one dependent step of the reduced CTC's chains
+    ({"forward": ..., "backward": ...}), from ``_CTC_STEP_PROBE`` built
+    with ``ctc.cu``'s flags beside the library."""
     import ctypes
 
     import torch
@@ -970,16 +992,20 @@ def ctc_step_cycles(steps: int = 20000) -> float:
                        + ["-shared", "-o", so, src], check=True, capture_output=True,
                        timeout=300)
         lib = ctypes.CDLL(so)
-        out = torch.zeros(2, dtype=torch.int64, device="cuda")
+        out = torch.zeros(2, 2, dtype=torch.int64, device="cuda")
         torch.cuda.synchronize()
-        if lib.ctc_step_cycles(steps, ctypes.c_void_p(out.data_ptr())) != 0:
-            raise AssertionError("the CTC step probe did not launch")
+        if lib.ctc_step_cycles(steps, ctypes.c_void_p(out[0].data_ptr()),
+                               ctypes.c_void_p(out[1].data_ptr())) != 0:
+            raise AssertionError("the CTC step probes did not launch")
         torch.cuda.synchronize()
-        return out[0].item() / steps
+        return {"forward": out[0, 0].item() / steps, "backward": out[1, 0].item() / steps}
 
 
 ROWS_FUSED = TRAIN_B * TRAIN_T   # rows of a micro-batch's hidden: 2 x 1500
 N_CTC, N_CTC_VALID = 48, 24      # the CTC label positions of bench_train's batch
+# the kernels of each reduced CTC entry, by name
+CTC_KERNELS = {"la_ctc_reduced_fwd": ("ctc_fwd_kernel",),
+               "la_ctc_reduced_bwd": ("ctc_bwd_weights_kernel", "ctc_bwd_kernel")}
 
 
 # the kernels of la_row_lse_bwd, by the names the profiler gives them
@@ -1192,12 +1218,15 @@ def phase_train_ctc(dev):
     recursions at the training shape (B = 2, T = 1500, N = 48, 24 valid
     with a repeated pair), and at B = 3, T = 40 for an all-padding target and
     one that cannot fit beside a normal one: NLL rtol 1e-5, alphas rtol 1e-5,
-    gradients rel-L2 1e-5, two runs bit-equal; times beside the chain floor
-    (a one-warp probe's cycles a dependent _lse3 step, times T), and the
-    forward beside ``F.ctc_loss`` on the same reduced emissions."""
+    gradients rel-L2 1e-5, two runs bit-equal; the plan and the ptxas lines
+    of the three kernels; times beside each kernel's own chain floor (a
+    one-warp probe's cycles a dependent step, times T), the forward beside
+    ``F.ctc_loss`` on the same reduced emissions and the backward beside
+    ``F.ctc_loss`` forward and backward (not the same function)."""
     import torch
     import torch.nn.functional as F
 
+    from lyricalignment_tpu_torch import kernels
     from lyricalignment_tpu_torch.ops import ctc
 
     rows = []
@@ -1212,7 +1241,6 @@ def phase_train_ctc(dev):
         nll_rel = ((nll - ref_nll).abs() / ref_nll.abs()).max().item()
         alpha_rel = ((alphas - ref_alphas).abs() / ref_alphas.abs().clamp(min=1)).max().item()
         rels = [rel_l2(x, y) for x, y in zip(grads, ref_grads)]
-        errs = [(x - y).abs().max().item() for x, y in zip(grads, ref_grads)]
         again = ctc.ctc_reduced_bwd(alphas, labels, valid, gl)
         same = (torch.equal(nll, ctc.ctc_reduced_fwd(blank, label, labels, valid)[0])
                 and all(torch.equal(x, y) for x, y in zip(grads, again)))
@@ -1228,6 +1256,10 @@ def phase_train_ctc(dev):
 
     # times at the training shape
     b, t, s_dim = TRAIN_B, TRAIN_T, 2 * N_CTC + 1
+    plan = ctc.ctc_plan(t, N_CTC)
+    scratch_mb = 4 * kernels.library().la_ctc_bwd_scratch_floats(b, t, N_CTC) / 1e6
+    log(f"[train-ctc] plan at T={t} N={N_CTC}: {json.dumps(plan)}; the backward's weights "
+        f"{scratch_mb:.2f} MB of scratch")
     blank, label, labels, valid = _ctc_inputs(dev, b, t, N_CTC, ["train", "train"], seed=t)
     nll, alphas = ctc.ctc_reduced_fwd(blank, label, labels, valid)
     _, ref_alphas = ctc.ctc_reduced_fwd_plain(blank, label, labels, valid)
@@ -1247,37 +1279,50 @@ def phase_train_ctc(dev):
         with torch.no_grad():
             return F.ctc_loss(*lib_args, blank=0, reduction="none")
 
-    step_cycles = ctc_step_cycles()
+    lib_lp = lib_args[0].detach().requires_grad_()
+
+    def library_fwd_bwd():
+        lib = F.ctc_loss(lib_lp, *lib_args[1:], blank=0, reduction="none")
+        return torch.autograd.grad(lib, lib_lp, grad_outputs=gl)
+
+    cycles = ctc_step_cycles()
     mhz = sm_clock_mhz()
-    floor_ms = t * step_cycles / (mhz * 1e3)
     io = {"ctc_reduced_fwd": 4 * (b * t + b * t * N_CTC + 2 * b * N_CTC + b * t * s_dim + b),
           "ctc_reduced_bwd": 4 * (b * t * s_dim + 2 * b * N_CTC + b + b * t + b * t * N_CTC)}
-    # _lse3 and the add, about 10 operations a state a frame
-    ops = 10.0 * b * t * s_dim
+    # the forward: _lse3 and the add, about 10 operations a state a frame;
+    # the backward: the weights (three _lse3 sums, three exponentials and
+    # divides) and the recurrence's three FMAs, about 20
+    ops = {"ctc_reduced_fwd": 10.0 * b * t * s_dim, "ctc_reduced_bwd": 20.0 * b * t * s_dim}
     # the backward has no library call: F.ctc_loss's gradient assumes
-    # normalised columns, which the reduced emissions are not
-    for kernel, fn, plain, err, library in (
+    # normalised columns, which the reduced emissions are not; its forward
+    # and backward are timed beside it as a route to a gradient
+    for kernel, fn, plain, err, library, route, chain in (
             ("ctc_reduced_fwd", lambda: ctc.ctc_reduced_fwd(blank, label, labels, valid),
              lambda: ctc.ctc_reduced_fwd_plain(blank, label, labels, valid),
-             (alphas - ref_alphas).abs().max().item(), library_fwd),
+             (alphas - ref_alphas).abs().max().item(), library_fwd, None, "forward"),
             ("ctc_reduced_bwd", lambda: ctc.ctc_reduced_bwd(alphas, labels, valid, gl),
              lambda: ctc.ctc_reduced_bwd_plain(alphas, labels, valid, gl),
-             max((x - y).abs().max().item() for x, y in zip(grads, ref_grads)), None)):
+             max((x - y).abs().max().item() for x, y in zip(grads, ref_grads)), None,
+             library_fwd_bwd, "backward")):
         ms = time_ms(fn, reps=10)
         plain_ms = time_ms(plain, reps=1, warmup=0)
         lib_ms = time_ms(library, reps=10) if library else None
-        bound_ms, bound_by = bound(ops, PEAK_F32, io[kernel])
+        route_ms = time_ms(route, reps=10) if route else None
+        bound_ms, bound_by = bound(ops[kernel], PEAK_F32, io[kernel])
+        floor_ms = t * cycles[chain] / (mhz * 1e3)
+        ptxas = "; ".join(f"{k}: {ptxas_report('ctc.cu', k)}" for k in CTC_KERNELS[f"la_{kernel}"])
         log(f"[train-ctc] {kernel} B={b} T={t} N={N_CTC} (S={s_dim}): kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"(F.ctc_loss) bound_ms={bound_ms:.5f} ({bound_by}); chain floor "
-            f"{floor_ms:.4f} ms ({t} frames x {step_cycles:.1f} cycles a step at {mhz:.0f} MHz), "
-            f"{floor_ms / ms:.3f} of the kernel's time; ptxas: "
-            f"{ptxas_report('ctc.cu', kernel[4:].replace('reduced_', '') + '_kernel')}")
+            f"(F.ctc_loss){'' if route_ms is None else f' route_ms={route_ms:.4f} (F.ctc_loss forward and backward: not the same function, its gradient assumes normalised columns)'} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}); {chain} chain floor {floor_ms:.4f} ms ({t} "
+            f"frames x {cycles[chain]:.1f} cycles a step at {mhz:.0f} MHz), "
+            f"{floor_ms / ms:.3f} of the kernel's time; ptxas: {ptxas}")
         rows.append(dict(name=kernel, route="cuda", source="lyricalignment_tpu_torch/csrc/ctc.cu",
                          replaces="lyricalignment_tpu/train/losses.py:216 (_ctc_nll_single's "
                                   "lax.scan, differentiated by autodiff)",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, chain_floor_ms=floor_ms))
+                         route_ms=route_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         chain_floor_ms=floor_ms, step_cycles=cycles[chain]))
     return rows
 
 
@@ -1718,9 +1763,7 @@ def phase_train_fused(dev, card, medium):
 def _fused_part(name):
     """The fused losses' kernel that a profiler name belongs to, or None."""
     flat = name.replace(" ", "")
-    for part, keys in (("la_row_lse", ("row_lse_kernel", "merge_kernel")),
-                       ("la_ctc_reduced_fwd", ("ctc_fwd_kernel",)),
-                       ("la_ctc_reduced_bwd", ("ctc_bwd_kernel",))):
+    for part, keys in (("la_row_lse", ("row_lse_kernel", "merge_kernel")), *CTC_KERNELS.items()):
         if any(k in flat for k in keys):
             return part
     part = _lse_bwd_part(name)

@@ -8,8 +8,13 @@ scipy, never ``jax`` and nothing of ``lyricalignment_tpu``.
 
 Layering:
     csrc/      — hand-written CUDA C++ kernels (log-mel, encoder attention
-                 forward and backward, streaming class log-sum-exp,
-                 Viterbi DP)
+                 forward and backward, streaming class log-sum-exp and its
+                 backward, Viterbi DP, and the reduced CTC pair: a forward
+                 with one state a lane in registers over ceil(S / 32)
+                 warps, a barrier a frame and its emissions staged ahead
+                 by cp.async; a backward whose _lse3 weights a grid-wide
+                 pass computes first, leaving a linear adjoint recurrence
+                 over two states a lane)
     kernels/   — nvcc build of ``csrc/`` into one shared library, ctypes
                  binding, launch counters
     ops/       — plain-tensor functions; each kernel's wrapper sits beside

@@ -15,8 +15,8 @@ beside ``metrics.jsonl``; ``--profile-at-step N`` writes a profile of step N
 kernels) to ``save_dir/profile/trace.json``.
 
 Not ported yet (absent): the mesh and pipeline flags
-(``--mesh-data/--mesh-model/--mesh-pipe``) and the whisper BPE codec
-(``--whisper-bpe``).
+(``--mesh-data/--mesh-model/--mesh-pipe``). The whisper BPE codec
+(``--whisper-bpe``) is there, as in every CLI (``cli/common.py``).
 
 Example:
     python -m lyricalignment_tpu_torch.cli.train_multitask \\

@@ -56,6 +56,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA -----------------------------------------------------------------
 
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) copied from
+// device to shared memory in one bulk transfer; completion is reported to
+// `bar` as transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // box at coordinates (c0 innermost, .., c3) into shared memory; completion
 // is reported to `bar` as transaction bytes
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,

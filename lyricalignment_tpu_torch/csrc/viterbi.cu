@@ -91,21 +91,10 @@ __host__ __device__ inline int ring_floats(int cf, int l_max) {
 // two parities of each warp's two edge states, then the two end values
 __host__ __device__ inline int fixed_floats(int warps) { return 4 * warps + 2; }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using la::cp_async16;
+using la::cp_async4;
+using la::cp_async_commit;
+using la::cp_async_wait;
 
 template <int S>
 __global__ void __launch_bounds__(1024)

@@ -67,8 +67,9 @@ SIGNATURES: Dict[str, list] = {
     # blank_lp, label_lp, labels, valid (u8), alphas, nll, batch, frames,
     # labels_max, stream
     "la_ctc_reduced_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # alphas, labels, valid, g, scratch (batch x frames x states floats),
-    # d_blank, d_label, batch, frames, labels_max, stream
+    # alphas, labels, valid, g, scratch (of la_ctc_bwd_scratch_floats(batch,
+    # frames, labels_max) floats: the _lse3 weights), d_blank, d_label,
+    # batch, frames, labels_max, stream
     "la_ctc_reduced_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lab, sil, labels, num_labels, num_frames, backpointer scratch (of
     # la_viterbi_scratch_words(batch, frames, labels_max) words), onset,
@@ -182,6 +183,10 @@ def library() -> ctypes.CDLL:
             lib.la_row_lse_bwd_plan.restype = ctypes.c_int
             lib.la_ctc_max_labels.argtypes = []
             lib.la_ctc_max_labels.restype = ctypes.c_int
+            lib.la_ctc_plan.argtypes = [_I, _I, _P]
+            lib.la_ctc_plan.restype = ctypes.c_int
+            lib.la_ctc_bwd_scratch_floats.argtypes = [_I, _I, _I]
+            lib.la_ctc_bwd_scratch_floats.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

@@ -2,10 +2,14 @@
 the target's own label positions' log-probs, with its gradient.
 
 Port of ``lyricalignment_tpu/train/losses.py:_ctc_nll_single`` (a
-``lax.scan`` under ``jax.vmap``, differentiated by autodiff). Two kernels
+``lax.scan`` under ``jax.vmap``, differentiated by autodiff). Two entries
 carry it on the card (``csrc/ctc.cu``): ``la_ctc_reduced_fwd`` (the
-per-sample NLL, keeping every frame's alphas) and ``la_ctc_reduced_bwd``
-(the reverse of the recursion). :func:`ctc_reduced_fwd_plain` and
+per-sample NLL, keeping every frame's alphas; a sample's states across
+the lanes of a block in registers, its emissions staged ahead by
+``cp.async``) and ``la_ctc_reduced_bwd`` (the reverse of the recursion:
+the ``_lse3`` weights of every frame in a grid-wide pass into the scratch,
+then a linear adjoint recurrence). :func:`ctc_plan` reports how the two
+lay out their work. :func:`ctc_reduced_fwd_plain` and
 :func:`ctc_reduced_bwd_plain` are the same two recursions vectorised over
 batch and states with a loop over frames; the CPU takes them.
 
@@ -18,6 +22,8 @@ and the gradient ``jax.grad`` gives it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -126,6 +132,23 @@ def ctc_reduced_bwd_plain(alphas: torch.Tensor, labels: torch.Tensor, valid: tor
     return d_blank, d_label
 
 
+PLAN_FIELDS = ("forward states a lane", "forward warps", "forward lanes", "forward chunk",
+               "forward smem", "backward states a lane", "backward warps", "backward lanes",
+               "backward padded states", "backward chunk", "backward smem")
+
+
+def ctc_plan(t_max: int, n: int) -> dict:
+    """How ``csrc/ctc.cu`` lays out its two chains at T = ``t_max``, N =
+    ``n`` (``la_ctc_plan``): for each, states a lane, warps a sample, lanes
+    that own states, frames a chunk and shared bytes a block; for the
+    backward also the padded state count (a weight row's stride)."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    rc = kernels.library().la_ctc_plan(t_max, n, out)
+    if rc != 0:
+        raise ValueError(f"ctc_reduced: no plan for T={t_max} N={n} ({rc})")
+    return dict(zip(PLAN_FIELDS, out))
+
+
 def _check(labels, valid, bdim, t_max, n):
     kernels.check_cuda("ctc_reduced labels", labels, torch.int32, 2)
     kernels.check_cuda("ctc_reduced valid", valid, torch.bool, 2)
@@ -172,7 +195,8 @@ def ctc_reduced_bwd(alphas, labels, valid, g):
         raise ValueError("ctc_reduced_bwd: shapes do not agree")
     d_blank = torch.empty((bdim, t_max), dtype=torch.float32, device=alphas.device)
     d_label = torch.empty((bdim, t_max, n), dtype=torch.float32, device=alphas.device)
-    scratch = torch.empty_like(alphas)
+    scratch = torch.empty((kernels.library().la_ctc_bwd_scratch_floats(bdim, t_max, n),),
+                          dtype=torch.float32, device=alphas.device)
     if bdim:
         kernels.launch("la_ctc_reduced_bwd", alphas.data_ptr(), labels.data_ptr(),
                        valid.data_ptr(), g.data_ptr(), scratch.data_ptr(), d_blank.data_ptr(),

@@ -3,10 +3,12 @@
 (``lyricalignment_tpu_torch/csrc/lse.cu``), log-mel kernel (``csrc/mel.cu``)
 and Viterbi DP (``csrc/viterbi.cu``) on one NVIDIA GPU, at the alignment
 main path's shapes (the DP also at 16 x 3000 frames x 128 labels), and of
-the row log-sum-exp's backward (``la_row_lse_bwd``, the ``bwd`` family) at
-the fused training shape (3000 rows, feat 768, 21127 columns):
+the row log-sum-exp's backward (``la_row_lse_bwd``, the ``bwd`` family) and
+the reduced CTC pair (``csrc/ctc.cu``, the ``ctc`` family) at the fused
+training shapes (3000 rows, feat 768, 21127 columns; B = 2, T = 1500,
+N = 48):
 
-    python3 scripts/torch_kernel_variants.py [lse | mel | viterbi | bwd | VARIANT ...]
+    python3 scripts/torch_kernel_variants.py [lse | mel | viterbi | bwd | ctc | VARIANT ...]
 
 Each variant is the kernel source with the text substitutions listed in
 ``VARIANTS`` below, compiled on its own (one nvcc each, all started
@@ -14,7 +16,9 @@ together) from a copy of ``csrc/`` with the source's own flags. ``lse`` /
 ``mel`` / ``viterbi`` name every variant of one source; with no arguments
 every variant runs. A variant is checked against the kernel's plain version
 (``row_lse_plain``, ``log10_mel_plain``, ``viterbi_dp_plain``: exactly;
-``row_lse_bwd_plain`` in float64 at rel-L2 1e-5) and
+``row_lse_bwd_plain`` in float64 at rel-L2 1e-5; ``ctc_reduced_fwd_plain``
+at NLL and alphas rtol 1e-5 and ``ctc_reduced_bwd_plain``, given the plain
+alphas, at rel-L2 1e-5) and
 then timed in two rounds, beside the one PyTorch call that computes the
 same function where there is one. The variants marked "timed only" leave
 out a part of the work to show what it costs; their outputs are wrong on purpose. ptxas'
@@ -114,6 +118,58 @@ def _scratch_words(extra):
 
 
 _RING = "constexpr int kRing = 2;"
+_CTC_FWD_K = "constexpr int kFwdStatesALane = 1;"
+_CTC_BWD_K = "constexpr int kBwdStatesALane = 2;"
+
+
+def _ctc_producer_warps(warps):
+    """The backward with `warps` producer warps in the chain's block that
+    write each chunk's weight rows into the ring, in place of the grid-wide
+    weight pass and the bulk copies: the ring's slots hand over on "full"
+    (the producers' arrivals) and "empty" (the chain's) mbarriers, and the
+    chain's barriers become named barrier 1 over its own warps."""
+    chain_bar = 'asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory")'
+    return [
+        ("constexpr int kRingBytes = 128 * 1024;  // the most a ring may take\n",
+         "constexpr int kRingBytes = 128 * 1024;  // the most a ring may take\n"
+         f"constexpr int kProducerWarps = {warps};\n"),
+        ("__launch_bounds__(1024 / K)\nctc_bwd_kernel(", "__launch_bounds__(1024)\nctc_bwd_kernel("),
+        ("edges + 2 * p.warps);          // [kBwdRing]\n",
+         "edges + 2 * p.warps);          // [kBwdRing]\n  uint64_t* empty = full + kBwdRing;\n"),
+        ("    for (int r = 0; r < kBwdRing; ++r) mbar_init(full + r, 1);\n"
+         "    fence_barrier_init();\n"
+         "    for (int r = 0; r < kBwdRing && r < nchunks; ++r) load_chunk(r);\n"
+         "  }\n  __syncthreads();\n",
+         "    for (int r = 0; r < kBwdRing; ++r) {\n"
+         "      mbar_init(full + r, 32 * kProducerWarps);\n"
+         "      mbar_init(empty + r, nthreads);\n    }\n"
+         "    fence_barrier_init();\n  }\n  __syncthreads();\n"
+         "  if (tid >= nthreads) {\n"
+         "    const int* labels = labels_all + (size_t)b * n;\n"
+         "    for (int ch = 0; ch < nchunks; ++ch) {\n"
+         "      if (ch >= kBwdRing) mbar_wait(empty + ch % kBwdRing, (ch / kBwdRing - 1) & 1);\n"
+         "      const int t_hi = t_max - 1 - ch * cf, nf = min(cf, t_hi);\n"
+         "      for (int j = 0; j < nf; ++j)\n"
+         "        weight_row(alphas + ((size_t)b * t_max + t_hi - nf + j) * s_dim, labels, s_dim,\n"
+         "                   p.s_pad, tid - nthreads, 32 * kProducerWarps,\n"
+         "                   ring + (ch % kBwdRing) * slot_f + j * row_f);\n"
+         "      la::hopper::mbar_arrive(full + ch % kBwdRing);\n"
+         "    }\n    return;\n  }\n"),
+        ("(ch / kBwdRing) & 1);\n    if (multi) __syncthreads();",
+         f"(ch / kBwdRing) & 1);\n    if (multi) {chain_bar};"),
+        ("      publish((t - 1) & 1);\n      if (multi) __syncthreads();",
+         f"      publish((t - 1) & 1);\n      if (multi) {chain_bar};"),
+        ("    sample_sync(multi);\n"
+         "    if (tid == 0 && ch + kBwdRing < nchunks) load_chunk(ch + kBwdRing);\n",
+         f"    if (multi) {chain_bar}; else __syncwarp();\n"
+         "    la::hopper::mbar_arrive(empty + ch % kBwdRing);\n"),
+        ("  if (t_max > 1) {", "  if (t_max < 0) {"),
+        ("  if ((err = allow_smem(kernel, p.smem)) != cudaSuccess) return err;\n"
+         "  kernel<<<batch, 32 * p.warps, p.smem, s>>>(",
+         "  if ((err = allow_smem(kernel, p.smem + 8 * kBwdRing)) != cudaSuccess) return err;\n"
+         "  kernel<<<batch, 32 * (p.warps + kProducerWarps), p.smem + 8 * kBwdRing, s>>>("),
+    ]
+
 _CLOCKS = [
     _scratch_words("4ll * batch"),
     ("  const int live = min(max(num_frames[b], 0), frames);\n",
@@ -247,10 +303,61 @@ VARIANTS = {
     # as built, with clock64 around the forward pass and the walk of each
     # sequence written after the packed scratch (cycles, cycles, live frames)
     "viterbi_phase_clocks": ("viterbi.cu", False, _CLOCKS),
+    # the reduced CTC pair: the forward's K = 1 state a lane in four warps
+    # at N = 48 (as built) against 2 in two and 4 in one (no block barrier);
+    # the backward's K = 2 in two warps against 1 in four and 4 in one
+    "ctc_as_built": ("ctc.cu", False, []),
+    "ctc_fwd_k2": ("ctc.cu", False, [(_CTC_FWD_K, "constexpr int kFwdStatesALane = 2;")]),
+    "ctc_fwd_k4": ("ctc.cu", False, [(_CTC_FWD_K, "constexpr int kFwdStatesALane = 4;")]),
+    "ctc_bwd_k1": ("ctc.cu", False, [(_CTC_BWD_K, "constexpr int kBwdStatesALane = 1;")]),
+    "ctc_bwd_k4": ("ctc.cu", False, [(_CTC_BWD_K, "constexpr int kBwdStatesALane = 4;")]),
+    # the backward's weights by 2 or 4 producer warps of its block, a chunk
+    # ahead into the ring, in place of the grid-wide weight pass
+    "ctc_producer_warps_2": ("ctc.cu", False, _ctc_producer_warps(2)),
+    "ctc_producer_warps_4": ("ctc.cu", False, _ctc_producer_warps(4)),
+    # ring depths (forward 3, backward 2 as built; both at 2, both at 3,
+    # both at 4) and frames a chunk
+    "ctc_rings_2": ("ctc.cu", False, [("constexpr int kFwdRing = 3;", "constexpr int kFwdRing = 2;")]),
+    "ctc_rings_3": ("ctc.cu", False, [("constexpr int kBwdRing = 2;", "constexpr int kBwdRing = 3;")]),
+    "ctc_rings_4": ("ctc.cu", False, [("constexpr int kFwdRing = 3;", "constexpr int kFwdRing = 4;"),
+                                      ("constexpr int kBwdRing = 2;", "constexpr int kBwdRing = 4;")]),
+    "ctc_chunk_16": ("ctc.cu", False, [("constexpr int kChunk = 64;",
+                                        "constexpr int kChunk = 16;")]),
+    "ctc_chunk_32": ("ctc.cu", False, [("constexpr int kChunk = 64;",
+                                        "constexpr int kChunk = 32;")]),
+    # ex2.approx / lg2.approx in the forward's _lse3 and the weights' sums
+    # (adopted only if they hold the tolerances)
+    "ctc_fast_math": ("ctc.cu", False, [
+        ("(m + logf(expf(a[i] - m) + expf(a1 - m) + expf(a2 - m)));",
+         "(m + __logf(__expf(a[i] - m) + __expf(a1 - m) + __expf(a2 - m)));"),
+        ("  sum = expf(a0 - m) + expf(a1 - m) + expf(a2 - m);",
+         "  sum = __expf(a0 - m) + __expf(a1 - m) + __expf(a2 - m);")]),
+    # ablations (timed only): the forward without its alpha stores, without
+    # its _lse3 math (a max in its place), without emission loads (the ring
+    # holds whatever it held); the backward without its weight pass (the
+    # chain on whatever the scratch holds), its d label_lp stores, its
+    # d blank_lp partials and reduce
+    "ctc_no_alpha_stores": ("ctc.cu", True, [
+        ("        if ((stored >> i) & 1) out[i] = a[i];", "        if (a[i] == 1234.5f) out[i] = a[i];")]),
+    "ctc_no_lse3_math": ("ctc.cu", True, [
+        ("(m + logf(expf(a[i] - m) + expf(a1 - m) + expf(a2 - m)));", "m;")]),
+    "ctc_no_emission_loads": ("ctc.cu", True, [
+        ("    if (r < nchunks) load_chunk(r);\n", ""),
+        ("    if (ch + kFwdRing < nchunks) load_chunk(ch + kFwdRing);\n", "")]),
+    "ctc_no_weight_pass": ("ctc.cu", True, [
+        ("  if (t_max > 1) {", "  if (t_max < 0) {")]),
+    "ctc_no_label_stores": ("ctc.cu", True, [
+        ("      if ((stored >> i) & 1) dl[pos[i]] = v;", "      if (v == 1234.5f) dl[pos[i]] = v;")]),
+    "ctc_no_blank_reduce": ("ctc.cu", True, [
+        ("      *part_out = emit(false);", "      if (emit(false) == 1234.5f) *part_out = 0.f;"),
+        ("    for (int j = tid; j < nf; j += nthreads) {\n      const float* r",
+         "    for (int j = tid; j < 0; j += nthreads) {\n      const float* r")]),
 }
-LAUNCHERS = {"lse.cu": "la_row_lse", "mel.cu": "la_log10_mel", "viterbi.cu": "la_viterbi"}
-KERNEL_NAMES = ("row_lse_kernel", "bwd_gemm_kernel", "log10_mel_kernel", "viterbi_kernel")
-FAMILIES = ("lse", "mel", "viterbi", "bwd")
+LAUNCHERS = {"lse.cu": "la_row_lse", "mel.cu": "la_log10_mel", "viterbi.cu": "la_viterbi",
+             "ctc.cu": "la_ctc_reduced_fwd"}
+KERNEL_NAMES = ("row_lse_kernel", "bwd_gemm_kernel", "log10_mel_kernel", "viterbi_kernel",
+                "ctc_fwd_kernel", "ctc_bwd_weights_kernel", "ctc_bwd_kernel")
+FAMILIES = ("lse", "mel", "viterbi", "bwd", "ctc")
 
 
 def launcher(name: str) -> str:
@@ -313,6 +420,11 @@ def compile_variants(names, root):
         if VARIANTS[name][0] == "viterbi.cu":
             lib.la_viterbi_scratch_words.argtypes = [ctypes.c_int] * 3
             lib.la_viterbi_scratch_words.restype = ctypes.c_longlong
+        if VARIANTS[name][0] == "ctc.cu":
+            lib.la_ctc_reduced_bwd.argtypes = build.SIGNATURES["la_ctc_reduced_bwd"]
+            lib.la_ctc_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+            lib.la_ctc_bwd_scratch_floats.restype = ctypes.c_longlong
+            lib.la_ctc_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
         libs[name] = lib
     return libs
 
@@ -531,6 +643,64 @@ def time_bwd(libs):
               f"of the function's {ops / 1e9:.1f} GFLOP")
 
 
+def time_ctc(libs):
+    """Each reduced CTC variant at the fused training shape (B = 2, T =
+    1500, N = 48, 24 valid with a repeated pair): the forward against
+    ctc_reduced_fwd_plain (NLL and alphas rtol 1e-5), the backward on the
+    plain alphas against ctc_reduced_bwd_plain (rel-L2 1e-5), the plan,
+    then both timed in two rounds."""
+    import torch
+
+    from chip_smoke import N_CTC, N_CTC_VALID, TRAIN_B, TRAIN_T, _ctc_inputs, rel_l2, time_ms
+    from lyricalignment_tpu_torch.ops import ctc
+
+    b, t, n = TRAIN_B, TRAIN_T, N_CTC
+    blank, label, labels, valid = _ctc_inputs("cuda", b, t, n, ["train", "train"], seed=t)
+    ref_nll, ref_alphas = ctc.ctc_reduced_fwd_plain(blank, label, labels, valid)
+    gl = torch.ones(b, device="cuda") / N_CTC_VALID
+    ref_grads = ctc.ctc_reduced_bwd_plain(ref_alphas, labels, valid, gl)
+    nll, alphas = torch.empty_like(ref_nll), torch.empty_like(ref_alphas)
+    grads = (torch.empty_like(ref_grads[0]), torch.empty_like(ref_grads[1]))
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for rnd in range(2):
+        for name, lib in libs.items():
+            scratch = torch.empty(max(lib.la_ctc_bwd_scratch_floats(b, t, n), 1), device="cuda")
+
+            def fwd():
+                return lib.la_ctc_reduced_fwd(blank.data_ptr(), label.data_ptr(),
+                                              labels.data_ptr(), valid.data_ptr(),
+                                              alphas.data_ptr(), nll.data_ptr(), b, t, n, stream)
+
+            def bwd():
+                return lib.la_ctc_reduced_bwd(ref_alphas.data_ptr(), labels.data_ptr(),
+                                              valid.data_ptr(), gl.data_ptr(), scratch.data_ptr(),
+                                              grads[0].data_ptr(), grads[1].data_ptr(), b, t, n,
+                                              stream)
+            if fwd() != 0 or bwd() != 0:
+                raise RuntimeError(f"variant {name}: launch refused")
+            torch.cuda.synchronize()
+            if rnd == 0:
+                nll_rel = ((nll - ref_nll).abs() / ref_nll.abs()).max().item()
+                alpha_rel = ((alphas - ref_alphas).abs()
+                             / ref_alphas.abs().clamp(min=1)).max().item()
+                rels = [rel_l2(x, y) for x, y in zip(grads, ref_grads)]
+                ok = nll_rel <= 1e-5 and alpha_rel <= 1e-5 and max(rels) <= 1e-5
+                plan = (ctypes.c_int * 11)()
+                lib.la_ctc_plan(t, n, plan)
+                timed_only = VARIANTS[name][1]
+                print(f"[{name}] nll rel {nll_rel:.2e}, alphas rel {alpha_rel:.2e}, rel_l2 "
+                      f"d_blank/d_label {rels[0]:.2e}/{rels[1]:.2e} "
+                      f"{'(timed only)' if timed_only else 'OK' if ok else 'FAIL'}; plan "
+                      f"{dict(zip(ctc.PLAN_FIELDS, plan))}", flush=True)
+                if not ok and not timed_only:
+                    raise AssertionError(f"variant {name} disagrees with the plain recursions")
+            times.setdefault((name, "fwd"), []).append(time_ms(fwd, reps=10, warmup=2))
+            times.setdefault((name, "bwd"), []).append(time_ms(bwd, reps=10, warmup=2))
+    for (name, part), ms in times.items():
+        print(f"[{name}] {part} ms {[round(x, 4) for x in ms]}")
+
+
 def main(argv) -> int:
     import torch
 
@@ -553,6 +723,9 @@ def main(argv) -> int:
         dp = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "viterbi.cu"}
         if dp:
             time_viterbi(dp)
+        pair = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "ctc.cu"}
+        if pair:
+            time_ctc(pair)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip())

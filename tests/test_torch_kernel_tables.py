@@ -20,7 +20,13 @@ a machine without a GPU can check it:
 * the Viterbi DP of ``csrc/viterbi.cu`` as its threads run it (states in
   lanes, the shuffled edge states, 2-bit backpointers packed in words and
   flushed in windows, the walk from two prefetched lanes) in numpy, exactly
-  equal to ``viterbi_dp_plain`` and the JAX ``_viterbi_dp``.
+  equal to ``viterbi_dp_plain`` and the JAX ``_viterbi_dp``;
+* the reduced CTC pair of ``csrc/ctc.cu`` as its lanes run it (K states a
+  lane, the edge states shuffled or published, the backward's ``_lse3``
+  weights computed first, then the linear adjoint recurrence of FMAs and
+  d blank_lp summed in the kernel's order) in numpy float32, against
+  ``ctc_reduced_fwd_plain`` / ``_bwd_plain`` and ``jax.grad`` of
+  ``jax.vmap(_ctc_nll_single)``.
 """
 
 import math
@@ -469,3 +475,316 @@ def test_viterbi_lane_plan():
     assert _lane_plan(2049) == (4, 17) and _lane_plan(4097) == (8, 17)
     assert _lane_plan(8193) == (16, 17) and _lane_plan(16384) == (16, 32)
     assert _lane_plan(16385) == (32, 17) and _lane_plan(32768) == (32, 32)
+
+
+# ---------------------------------------------------------------------------
+# The reduced CTC pair of csrc/ctc.cu: states in lanes, the backward's
+# weights off the chain, in numpy float32
+# ---------------------------------------------------------------------------
+
+_CTC_NEG = np.float32(-1.0e30)
+_F32 = np.float32
+
+
+def _ctc_plan(s_dim, k=4):
+    """(states a lane, warps, lanes that own states, padded states) as
+    ``make_plan`` in csrc/ctc.cu lays out S states at K = ``k`` (each
+    chain has its own K)."""
+    warps = -(-s_dim // (32 * k))
+    assert warps <= 32
+    return k, warps, -(-s_dim // k), 32 * warps * k
+
+
+def _lse3(a0, a1, a2):
+    m = np.maximum(np.maximum(a0, a1), a2)
+    return m + np.log(np.exp(a0 - m) + np.exp(a1 - m) + np.exp(a2 - m))
+
+
+def _fma(a, b, c):
+    """fmaf: the product exact in float64, one rounding to float32 (up to
+    the rare double rounding of the sum)."""
+    return (a.astype(np.float64) * b + c).astype(_F32)
+
+
+def _ctc_states(labels, valid, s_pad):
+    """Per padded state: odd, label position (clamped), live (a real state
+    whose emission is not the sentinel), may skip."""
+    n = labels.shape[0]
+    s_dim = 2 * n + 1
+    s = np.arange(s_pad)
+    odd = (s & 1) == 1
+    pos = np.minimum(s >> 1, n - 1)
+    live = (s < s_dim) & (~odd | valid[pos])
+    skip = odd & (s >= 3) & (s < s_dim) & (labels[pos] != labels[np.maximum(pos - 1, 0)])
+    return odd, pos, live, skip
+
+
+def _ctc_fwd_lanes(blank, label, labels, valid, k=4):
+    """The forward as ``ctc_fwd_kernel`` steps: thread j's K states in
+    "registers" [warps, 32, K]; a slot's states s - 1 and s - 2 from its own
+    lower slots, or (the lowest two) ``__shfl_up_sync`` from the lane below,
+    or on a warp's lane 0 (and lane 1 at K = 1) the edges the warp below
+    published, the sentinel below warp 0; every slot steps, the dead ones
+    (past S, invalid positions) with the sentinel emission. -> (nll,
+    alphas) as float32."""
+    bdim, t_max, n = label.shape
+    s_dim = 2 * n + 1
+    _, warps, _, s_pad = _ctc_plan(s_dim, k)
+    nll = np.zeros(bdim, _F32)
+    alphas = np.zeros((bdim, t_max, s_dim), _F32)
+    for b in range(bdim):
+        odd, pos, live, skip = (x.reshape(warps, 32, k)
+                                for x in _ctc_states(labels[b], valid[b], s_pad))
+
+        def emission(t):
+            return np.where(~live, _CTC_NEG, np.where(odd, label[b, t][pos], blank[b, t]))
+
+        s = np.arange(s_pad).reshape(warps, 32, k)
+        a = np.where(s < 2, emission(0), _CTC_NEG).astype(_F32)
+        alphas[b, 0] = a.reshape(-1)[:s_dim]
+        for t in range(1, t_max):
+            # the edges: each warp's two highest states, to the warp above
+            top1 = a[:, 31, k - 1]
+            top2 = a[:, 31, k - 2] if k >= 2 else a[:, 30, 0]
+            edge1 = np.concatenate([[_CTC_NEG], top1[:-1]])
+            edge2 = np.concatenate([[_CTC_NEG], top2[:-1]])
+            below1 = np.roll(a[:, :, k - 1], 1, axis=1)
+            below2 = np.roll(a[:, :, k - 2], 1, axis=1) if k >= 2 else np.roll(a[:, :, 0], 2, axis=1)
+            below1[:, 0], below2[:, 0] = edge1, edge2
+            if k == 1:
+                below2[:, 1] = edge1
+            em = emission(t)
+            new = np.empty_like(a)
+            for i in range(k - 1, -1, -1):
+                a1 = a[:, :, i - 1] if i >= 1 else below1
+                a2 = a[:, :, i - 2] if i >= 2 else (below1 if i == 1 else below2)
+                a2 = np.where(skip[:, :, i], a2, _CTC_NEG)
+                new[:, :, i] = em[:, :, i] + _lse3(a[:, :, i], a1, a2)
+            a = new
+            alphas[b, t] = a.reshape(-1)[:s_dim]
+        tlen = int(valid[b].sum())
+        flat = a.reshape(-1)
+        end_lab = flat[2 * tlen - 1] if tlen > 0 else _CTC_NEG
+        end_blank = flat[2 * tlen]
+        m = max(end_lab, end_blank)
+        nll[b] = -(m + np.log(np.exp(end_lab - m) + np.exp(end_blank - m)))
+    return nll, alphas
+
+
+def _ctc_weights(alpha_prev, skip, s_dim, s_pad):
+    """``ctc_bwd_weights_kernel`` for one frame t: rows u0, u1, u2 [s_pad]
+    over frame t - 1's alphas (``skip`` [s_pad]: the states that may skip),
+    zeros past S (and u2 where s + 2 may not skip)."""
+    a = np.full(s_pad + 2, _CTC_NEG, _F32)
+    a[:s_dim] = alpha_prev
+    x = np.arange(s_pad + 2)
+    a1 = np.concatenate([[_CTC_NEG], a[:-1]])
+    a2 = np.where(np.concatenate([skip, [False, False]]),
+                  np.concatenate([[_CTC_NEG, _CTC_NEG], a[:-2]]), _CTC_NEG)
+    m = np.maximum(np.maximum(a, a1), a2)
+    total = np.exp(a - m) + np.exp(a1 - m) + np.exp(a2 - m)
+    real = x < s_dim
+    av = a[:s_pad]
+    u0 = np.where(real[:s_pad], np.exp(av - m[:s_pad]) / total[:s_pad], 0)
+    u1 = np.where(real[1:s_pad + 1], np.exp(av - m[1:s_pad + 1]) / total[1:s_pad + 1], 0)
+    skip2 = np.concatenate([skip, [False, False]])[2:]
+    u2 = np.where(skip2, np.exp(np.where(skip2, av - m[2:], 0)) / total[2:], 0)
+    return np.stack([u0, u1, u2]).astype(_F32)
+
+
+def _ctc_bwd_lanes(alphas, labels, valid, g, k=4, weights=_ctc_weights):
+    """The backward as ``la_ctc_reduced_bwd`` runs it: every frame's
+    weights first (``weights``), then the chain from the end states' adjoint:
+    frame t's emission adjoints out (d label_lp from the odd states, each
+    lane's even states summed in order), then adj_{t-1} = fma(u2, x2,
+    fma(u1, x1, u0 adj)) with the states s + 1 and s + 2 from the lane's own
+    higher slots, ``__shfl_down_sync`` from the lane above or the edges the
+    warp above published (0 above the last warp); d blank_lp[t] sums the
+    lanes' partials into four sums by lane mod 4, each in lane order, then
+    (0 + 1) + (2 + 3). -> (d_blank, d_label) as float32."""
+    bdim, t_max, s_dim = alphas.shape
+    n = labels.shape[1]
+    _, warps, lanes, s_pad = _ctc_plan(s_dim, k)
+    d_blank = np.zeros((bdim, t_max), _F32)
+    d_label = np.zeros((bdim, t_max, n), _F32)
+    for b in range(bdim):
+        odd, pos, live, skip = _ctc_states(labels[b], valid[b], s_pad)
+        w = np.stack([np.zeros((3, s_pad), _F32)]
+                     + [weights(alphas[b, t - 1], skip, s_dim, s_pad)
+                        for t in range(1, t_max)])
+        tlen = int(valid[b].sum())
+        last = alphas[b, -1]
+        end_lab = last[2 * tlen - 1] if tlen > 0 else _CTC_NEG
+        end_blank = last[2 * tlen]
+        m = max(end_lab, end_blank)
+        e_lab, e_blank = np.exp(end_lab - m), np.exp(end_blank - m)
+        gs = _F32(g[b]) / (e_lab + e_blank)
+        adj = np.zeros(s_pad, _F32)
+        adj[2 * tlen] = -gs * e_blank
+        if tlen > 0:
+            adj[2 * tlen - 1] = -gs * e_lab
+
+        def emit(t, first):
+            on = live & ((not first) | (np.arange(s_pad) < 2))
+            v = np.where(on, adj, _F32(0)).astype(_F32)
+            real_odd = odd & (np.arange(s_pad) < s_dim)
+            d_label[b, t, pos[real_odd]] = v[real_odd]
+            ev = np.where(odd, _F32(0), v).reshape(-1, k)
+            part = np.zeros(ev.shape[0], _F32)
+            for i in range(k):       # a lane's even states in order
+                part = (part + ev[:, i]).astype(_F32)
+            return part
+
+        for t in range(t_max - 1, 0, -1):
+            part = emit(t, False)
+            q = [_F32(0)] * 4           # four sums by lane mod 4, in lane order
+            for lane in range(lanes):
+                q[lane % 4] = _F32(q[lane % 4] + part[lane])
+            d_blank[b, t] = _F32(_F32(q[0] + q[1]) + _F32(q[2] + q[3]))
+            lane_adj = adj.reshape(warps * 32, k)
+            above1 = np.concatenate([lane_adj[1:, 0], [0]]).astype(_F32)
+            above2 = (np.concatenate([lane_adj[1:, 1], [0]]) if k >= 2
+                      else np.concatenate([lane_adj[2:, 0], [0, 0]])).astype(_F32)
+            u0, u1, u2 = (x.reshape(-1, k) for x in w[t])
+            new = np.empty_like(lane_adj)
+            for i in range(k):
+                x1 = lane_adj[:, i + 1] if i + 1 < k else above1
+                x2 = lane_adj[:, i + 2] if i + 2 < k else (above1 if i + 2 == k else above2)
+                new[:, i] = _fma(u2[:, i], x2, _fma(u1[:, i], x1, (u0[:, i] * lane_adj[:, i])))
+            adj = new.reshape(-1)
+        d_blank[b, 0] = emit(0, True)[0]
+    return d_blank, d_label
+
+
+def _ctc_case_np(t, n, seed, kinds):
+    """Reduced emissions and targets as tests/test_torch_cuda.py's
+    ``_ctc_case`` makes them, from numpy."""
+    rng = np.random.default_rng(seed)
+    bdim = len(kinds)
+    blank = (rng.standard_normal((bdim, t)) - 2).astype(_F32)
+    label = (rng.standard_normal((bdim, t, n)) - 2).astype(_F32)
+    labels = rng.integers(1, 50, (bdim, n)).astype(np.int32)
+    valid = np.zeros((bdim, n), bool)
+    for i, kind in enumerate(kinds):
+        kk = {"random": n // 2, "repeats": n // 2, "empty": 0, "full": n, "infeasible": n}[kind]
+        valid[i, :kk] = True
+        if kind == "repeats":
+            labels[i, 1:kk:2] = labels[i, 0:kk - 1:2]
+    return blank, label, labels, valid
+
+
+def _jax_ctc(blank, label, labels, valid, g):
+    import jax
+    import jax.numpy as jnp
+
+    from lyricalignment_tpu.train import losses as J
+
+    def f(bl, ll):
+        return jax.vmap(J._ctc_nll_single)(bl, ll, jnp.asarray(labels), jnp.asarray(valid))
+
+    nll = np.asarray(f(blank, label))
+    grads = jax.grad(lambda a, b: jnp.sum(f(a, b) * g), argnums=(0, 1))(blank, label)
+    return nll, [np.asarray(x) for x in grads]
+
+
+def _rel_np(a, b):
+    return float(np.linalg.norm(a.astype(np.float64) - b) / max(np.linalg.norm(b), 1e-30))
+
+
+# S = 3 / 7 / 11 / 31 / 33 / 97 / 129 / 1023: at K = 4 one warp up to S = 128,
+# then 2 and 8 warps (the edges cross warps); K = 1 and 2 are the plans the
+# variants time
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("t,n", [(1, 1), (2, 3), (7, 5), (9, 15), (9, 16), (6, 48), (5, 64),
+                                 (3, 511)])
+def test_ctc_lane_model_matches_plain_and_jax(t, n, k):
+    """The lane model of the forward and of the backward (weights first,
+    then the linear recurrence, d blank_lp in the kernel's order) against
+    the plain recursions and ``jax.vmap(_ctc_nll_single)`` with its
+    ``jax.grad``: NLL rtol 1e-5, gradients rel-L2 1e-5, for a random, a
+    repeated, an all-padding and a full target (one that cannot fit where
+    2N exceeds T)."""
+    from lyricalignment_tpu_torch.ops import ctc
+
+    kinds = ["random", "repeats", "empty", "infeasible" if 2 * n > t else "full"]
+    blank, label, labels, valid = _ctc_case_np(t, n, 17 * t + n, kinds)
+    g = np.random.default_rng(t).standard_normal(4).astype(_F32)
+    nll, alphas = _ctc_fwd_lanes(blank, label, labels, valid, k)
+    grads = _ctc_bwd_lanes(alphas, labels, valid, g, k)
+    tt = [torch.from_numpy(x) for x in (blank, label, labels, valid)]
+    ref_nll, ref_alphas = ctc.ctc_reduced_fwd_plain(*tt)
+    ref_grads = ctc.ctc_reduced_bwd_plain(ref_alphas, tt[2], tt[3], torch.from_numpy(g))
+    jax_nll, jax_grads = _jax_ctc(blank, label, labels, valid, g)
+    np.testing.assert_allclose(nll, ref_nll.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(nll, jax_nll, rtol=1e-5)
+    np.testing.assert_allclose(alphas, ref_alphas.numpy(), rtol=1e-5, atol=1e-4)
+    for got, plain, want in zip(grads, ref_grads, jax_grads):
+        assert _rel_np(got, plain.numpy()) <= 1e-5
+        assert _rel_np(got, want) <= 1e-5
+
+
+def _shortcut_weights(alpha_prev, skip, s_dim, s_pad, em_t, alpha_t):
+    """The weights as exp(a_j - (alpha_t[s] - em_t[s])): equal to exp(a_j -
+    m) / sum in real arithmetic, not at the sentinel."""
+    a = np.full(s_pad + 2, _CTC_NEG, _F32)
+    a[:s_dim] = alpha_prev
+    lse = np.full(s_pad + 2, _CTC_NEG, _F32)
+    lse[:s_dim] = alpha_t - em_t
+    av = a[:s_pad]
+    real = np.arange(s_pad + 2) < s_dim
+    u0 = np.where(real[:s_pad], np.exp(av - lse[:s_pad]), 0)
+    u1 = np.where(real[1:s_pad + 1], np.exp(av - lse[1:s_pad + 1]), 0)
+    skip2 = np.concatenate([skip, [False, False]])[2:]
+    u2 = np.where(skip2, np.exp(np.where(skip2, av - lse[2:], 0)), 0)
+    return np.stack([u0, u1, u2]).astype(_F32)
+
+
+def test_ctc_sentinel_weights_are_a_third_each():
+    """A target that cannot fit (N = 4 labels in T = 3 frames): at frame 1
+    state 4's three inputs are all the sentinel, and its weights are 1/3
+    each, as jax.grad gives them; the shortcut exp(a_j - (alpha_t - em_t))
+    gives 1 each there (-1e30 + log 3 rounds to -1e30), and with it the
+    backward leaves jax.grad, while the kernel's weights hold it."""
+    blank, label, labels, valid = _ctc_case_np(3, 4, 5, ["infeasible", "random"])
+    labels[0] = [3, 7, 9, 11]
+    g = np.array([1.0, 0.5], _F32)
+    nll, alphas = _ctc_fwd_lanes(blank, label, labels, valid)
+    assert nll[0] > 1e29
+    s_dim = 9
+    _, _, _, s_pad = _ctc_plan(s_dim)
+    _, pos, _, skip = _ctc_states(labels[0], valid[0], s_pad)
+    w = _ctc_weights(alphas[0, 0], skip, s_dim, s_pad)
+    third = _F32(1) / _F32(3)
+    # state 4 reads states 4 (u0[4]), 3 (u1[3]) and, unable to skip (blank),
+    # its third input is the sentinel itself
+    assert w[0, 4] == third and w[1, 3] == third
+    # state 5 (label 2, may skip) reads 5, 4 and 3: all the sentinel
+    assert w[0, 5] == third and w[1, 4] == third and w[2, 3] == third
+    em = np.where((np.arange(s_dim) & 1) == 1, label[0, 1][pos[:s_dim]], blank[0, 1])
+    short = _shortcut_weights(alphas[0, 0], skip, s_dim, s_pad, em, alphas[0, 1])
+    assert short[0, 4] == 1 and short[1, 3] == 1 and short[2, 3] == 1
+    _, jax_grads = _jax_ctc(blank, label, labels, valid, g)
+
+    def shortcut(alpha_prev, skip_, s_dim_, s_pad_):
+        t = next(t for t in range(1, alphas.shape[1])
+                 if np.array_equal(alphas[0, t - 1], alpha_prev))
+        e = np.where((np.arange(s_dim_) & 1) == 1, label[0, t][pos[:s_dim_]], blank[0, t])
+        return _shortcut_weights(alpha_prev, skip_, s_dim_, s_pad_, e, alphas[0, t])
+
+    good = _ctc_bwd_lanes(alphas[:1], labels[:1], valid[:1], g[:1])
+    bad = _ctc_bwd_lanes(alphas[:1], labels[:1], valid[:1], g[:1], weights=shortcut)
+    for got, broken, want in zip(good, bad, jax_grads):
+        assert _rel_np(got, want[:1]) <= 1e-5
+        assert _rel_np(broken, want[:1]) > 1e-2
+
+
+def test_ctc_lane_plan():
+    """K states a lane in ceil(S / 32K) warps, the padded states (a weight
+    row's stride) 32 K warps: at K = 4 one warp up to S = 128 (N = 63),
+    8 at N = 511; K = 2 needs 16 warps there and K = 1 32, the most a
+    block holds."""
+    assert [_ctc_plan(s) for s in (3, 31, 33, 97, 127, 129, 1023)] == [
+        (4, 1, 1, 128), (4, 1, 8, 128), (4, 1, 9, 128), (4, 1, 25, 128), (4, 1, 32, 128),
+        (4, 2, 33, 256), (4, 8, 256, 1024)]
+    assert _ctc_plan(97, 2) == (2, 2, 49, 128) and _ctc_plan(97, 1) == (1, 4, 97, 128)
+    assert _ctc_plan(1023, 2) == (2, 16, 512, 1024) and _ctc_plan(1023, 1) == (1, 32, 1023, 1024)
