@@ -110,6 +110,25 @@ NVIDIA GPU (written for the H100, sm_90a):
    must equal ``align_many``'s on the same requests, and the four serving
    kernels must launch.
 
+9. phase "mesh", scale-out (``parallel/mesh.py``) on the one card:
+   (a) a world of one over nccl at whisper-medium: the alignment batch (B =
+       16 x 30 s) through ``align_records`` unmeshed, with ``--mesh-data 1``
+       (equal bit for bit) and tensor-parallel on a model axis of one (every
+       f / g / gather collective on nccl; encoder rel-L2 5e-3, onsets and
+       offsets within one frame), then one bf16 train step at bench_train's
+       micro-batch unmeshed and over the mesh (losses and parameters equal bit
+       for bit), launches as in phases "throughput" and "train" (c);
+   (b) two spawned processes sharing the card over gloo, ``--mesh-model 2``:
+       whisper-medium alignment with 8 of the 16 heads a rank (each rank
+       launches la_bias_attention 24 times a batch), encoder rel-L2 against
+       the single process 5e-3, onsets and offsets within one frame, and a
+       float32 tiny model's segments at atol 1e-4; fails loudly if the card's
+       compute mode is exclusive-process;
+   (c) the same two processes, ``--mesh-data 2``: one whisper-tiny train step
+       with its align and transcript samples on different ranks, losses rtol
+       1e-4 of the single-process GPU step, every training kernel launched on
+       each rank.
+
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero (and prints no result) without CUDA or without the repository
@@ -2524,6 +2543,458 @@ def phase_serve(dev, card, tmp):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: scale-out (parallel/mesh.py) on the one card
+# ---------------------------------------------------------------------------
+
+MESH_B = 16                  # the alignment batch of parts (a) and (b): 16 x 30 s
+MESH_SPAWN_TIMEOUT = 420     # seconds for both ranks of parts (b) and (c)
+
+
+def _medium_align_model(dev, seed=0, compute_dtype=None):
+    """whisper-medium AlignModel for inference: bf16-resident, tanh GELU,
+    the CTC head of 21129 classes, random weights from ``seed`` (the same
+    on every process) with the head's fc scaled up (sharp emissions: few
+    near-ties), the key-bias route off as under any mesh. ``compute_dtype``
+    float32: the same bf16-rounded weights computed in float32."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS, bf16_resident
+
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True)
+    with torch.device(dev):
+        model = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=C_CTC))
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    with torch.no_grad():
+        model.align_rnn.fc.weight.mul_(8.0)
+    bf16_resident(model.whisper_model)
+    if compute_dtype is not None:
+        f32 = AlignModel(dataclasses.replace(model.cfg, whisper=dataclasses.replace(
+            wcfg, compute_dtype=compute_dtype))).to(dev)
+        f32.load_state_dict(model.state_dict())
+        model = f32
+    return model.eval()
+
+
+def _mesh_tiny_model(dev):
+    """A float32 model with 2 heads of 64 (one a rank under --mesh-model 2),
+    sharp emissions, random weights from a fixed seed."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WhisperConfig
+
+    wcfg = WhisperConfig(n_vocab=64, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                         n_text_ctx=16, n_text_state=128, n_text_head=2, n_text_layer=1)
+    with torch.device(dev):
+        model = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=32, output_dim=C_CTC))
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(11))
+    with torch.no_grad():
+        model.align_rnn.fc.weight.mul_(8.0)  # sharp emissions: no near-ties
+    return model.eval()
+
+
+def _mesh_train_setup(dev):
+    """Part (c)'s whisper-tiny train step: float32, dropout drawn, two
+    micro-batches of 2 whose align and transcript samples fall on different
+    data ranks."""
+    import numpy as np
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+    from lyricalignment_tpu_torch.train.trainer import TrainConfig
+
+    cfg = AlignModelConfig(whisper=WHISPER_CONFIGS["tiny"], hidden_dim=384, output_dim=421,
+                           train_transcript=True)
+    with torch.device(dev):
+        model = AlignModel(cfg)
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(5))
+    tcfg = TrainConfig(accum_grad_steps=2, use_ctc=True, vocab_size=420, warmup_steps=0,
+                       total_steps=10, head_lr=5e-3, backbone_lr=1e-3)
+    stacked = _train_batch(np.random.default_rng(8), 2, 2, WHISPER_CONFIGS["tiny"].n_vocab,
+                           400, dec_len=12)
+    stacked["has_alignment"][0, 1] = stacked["has_alignment"][1, 0] = False
+    return model, tcfg, stacked
+
+
+def _mesh_args(**mesh):
+    import types
+
+    return types.SimpleNamespace(use_ctc_loss=True, is_mixture=0, bucket_seconds=5.0,
+                                 max_label_len=L_BENCH, batch_size=MESH_B, **mesh)
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_inputs(tmp, dev):
+    """The 16 x 30 s WAV records (written once by the parent) and a fixed
+    mel batch for the encoder checks."""
+    import torch
+
+    from lyricalignment_tpu_torch.data.records import Record
+    from lyricalignment_tpu_torch.ops.mel import log_mel
+
+    with open(os.path.join(tmp, "mesh_requests.json"), encoding="utf-8") as f:
+        requests = json.load(f)
+    records = [Record(audio_path=p, text=lyric) for p, lyric in requests]
+    g = torch.Generator(device=dev).manual_seed(21)
+    mel = log_mel(torch.randn(MESH_B, SECONDS * 16000, device=dev, generator=g) * 0.1)
+    return records, mel
+
+
+def _align(model, records, **mesh):
+    """``cli.inference_alignment.align_records`` on ``records`` (each
+    kernel's launches counted from zero): (segments, launches, wall s)."""
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.cli.inference_alignment import align_records
+    from lyricalignment_tpu_torch.text.bert_tokenizer import BertWordPieceTokenizer
+
+    vocab, table = _vocab_and_table()
+    bert = BertWordPieceTokenizer(vocab=vocab)
+    dev = next(model.parameters()).device
+    _sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    segs = [s for _, s in align_records(records, model, table, bert, _mesh_args(**mesh))]
+    _sync(dev)
+    return segs, dict(kernels.launches), time.perf_counter() - t0
+
+
+def _check_pairs(segments, records):
+    """Each record's [onset, offset] pairs: one a character, finite, ordered
+    and inside the 30 s window."""
+    for record, segs in zip(records, segments):
+        assert len(segs) == len(record.text), (record.audio_path, len(segs))
+        prev = 0.0
+        for on, off in segs:
+            assert math.isfinite(on) and prev - 1e-9 <= on < off <= SECONDS + 0.04, (on, off)
+            prev = off
+
+
+def _frame_flips(a, b):
+    """(positions whose onset or offset differs, the largest difference in s)."""
+    flips, worst = 0, 0.0
+    for x, y in zip(a, b):
+        for (s0, e0), (s1, e1) in zip(x, y):
+            flips += (s0 != s1) + (e0 != e1)
+            worst = max(worst, abs(s0 - s1), abs(e0 - e1))
+    return flips, worst
+
+
+def _within_frame(a, b):
+    """The share of onsets and offsets of ``a`` within one 20 ms frame of
+    ``b``'s."""
+    pairs = [(u, v) for x, y in zip(a, b) for p, q in zip(x, y) for u, v in zip(p, q)]
+    return sum(abs(u - v) <= 0.02 + 1e-9 for u, v in pairs) / len(pairs)
+
+
+def _train_once(model, tcfg, stacked, mesh=None):
+    """One make_train_step: (losses, launches, the parameters after)."""
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    state, tx = init_train_state(model, tcfg)
+    dev = next(model.parameters()).device
+    _sync(dev)
+    kernels.reset_launch_counts()
+    _, losses = make_train_step(tcfg, tx, mesh)(state, stacked, 3)
+    _sync(dev)
+    return ({k: float(v) for k, v in losses.items()}, dict(kernels.launches),
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def phase_mesh_world_of_one(dev, card, tmp):
+    """(a): a world of one over nccl, whisper-medium. The alignment batch of
+    16 x 30 s unmeshed, through the CLI's mesh path with --mesh-data 1 (data
+    rows, the segment gather; equal bit for bit), and tensor-parallel on a
+    model axis of one (every f / g / gather collective on nccl; bf16 rounds
+    the row-parallel sums and biases in another order: within one frame).
+    Then one bf16 train step at bench_train's micro-batch unmeshed and over
+    the world-of-one mesh (global counts and the gradient all-reduce on
+    nccl): equal losses and parameters, bit for bit. Returns the unmeshed
+    segments and encoder output, which part (b) is held to."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lyricalignment_tpu_torch.cli.common import init_distributed
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS, bf16_resident
+    from lyricalignment_tpu_torch.parallel.mesh import make_mesh, shard_align_params
+    from lyricalignment_tpu_torch.train.trainer import TrainConfig
+
+    t0 = time.perf_counter()
+    init_distributed(dev.type)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.get_backend() != backend or dist.get_world_size() != 1:
+        raise AssertionError(f"part (a) runs a world of one over {backend}, got "
+                             f"{dist.get_backend()} x {dist.get_world_size()}")
+    records, mel = _mesh_inputs(tmp, dev)
+    base = _medium_align_model(dev)
+    weights = {k: v.clone() for k, v in base.state_dict().items()}
+    expected = {"la_log10_mel": 1, "la_bias_attention": base.cfg.whisper.n_audio_layer,
+                "la_row_lse": 1, "la_viterbi": 1}
+    _align(base, records[:2])  # first-use allocations outside the comparison
+    runs = {}
+    for name in ("unmeshed", "data1", "tp1"):
+        model = base
+        if name != "unmeshed":
+            model = AlignModel(base.cfg).to(dev).eval()
+            model.load_state_dict(weights)
+            bf16_resident(model.whisper_model)
+        if name == "tp1":
+            shard_align_params(model, make_mesh(1, 1, dev.type), tp=True)
+        with torch.inference_mode():
+            enc = model.whisper_model.embed_audio(mel)
+        segs, counts, wall = _align(model, records, **({} if name == "unmeshed" else
+                                                        {"mesh_data": 1}))
+        runs[name] = (segs, enc, counts, wall)
+        if counts != expected:
+            raise AssertionError(f"(a) {name}: launches {counts}, expected {expected}")
+        del model
+    (u_segs, u_enc, _, u_wall), (d_segs, d_enc, _, d_wall), (t_segs, t_enc, _, t_wall) = (
+        runs["unmeshed"], runs["data1"], runs["tp1"])
+    _check_pairs(u_segs, records)
+    t_flips, t_worst = _frame_flips(t_segs, u_segs)
+    t_rel = rel_l2(t_enc, u_enc)
+    log(f"[mesh-a] world of one over {backend}, whisper-medium bf16, B={MESH_B} x {SECONDS} s: "
+        f"align_records unmeshed {u_wall:.3f} s, --mesh-data 1 {d_wall:.3f} s (segments "
+        f"equal: {d_segs == u_segs}; encoder equal: {bool(torch.equal(d_enc, u_enc))}), "
+        f"tensor-parallel on a model axis of 1 {t_wall:.3f} s (encoder rel-L2 {t_rel:.2e}, "
+        f"<= 5e-3; {t_flips} onsets/offsets moved, at most {t_worst:.3f} s, <= 0.02); "
+        f"launches a batch {expected}")
+    if d_segs != u_segs or not torch.equal(d_enc, u_enc):
+        raise AssertionError("(a) --mesh-data 1 differs from the unmeshed run")
+    if t_rel > 5e-3 or t_worst > 0.02 + 1e-9:
+        raise AssertionError("(a) the tensor-parallel path differs beyond bf16 rounding")
+    del base, weights, runs
+    torch.cuda.empty_cache()
+
+    # one bf16 train step at bench_train's micro-batch (2 x 30 s)
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True)
+    cfg = AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=C_CTC, train_transcript=True)
+    tcfg = TrainConfig(accum_grad_steps=1, use_ctc=True, vocab_size=C_CTC - 1, warmup_steps=0,
+                       total_steps=2000, grad_accum_dtype=torch.bfloat16,
+                       adam_mu_dtype=torch.bfloat16)
+    stacked = _train_batch(np.random.default_rng(0), 1, TRAIN_B, wcfg.n_vocab, 400)
+    stacked["has_alignment"][0, 1] = False
+    with torch.device(dev):
+        model = AlignModel(cfg)
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    _train_once(model, tcfg, stacked)  # warm-up: first-use allocations
+    model.load_state_dict(weights)
+    t1 = time.perf_counter()
+    u_loss, u_counts, u_after = _train_once(model, tcfg, stacked)
+    u_ms = (time.perf_counter() - t1) * 1e3
+    model.load_state_dict(weights)
+    mesh = make_mesh(1, 1, dev.type)
+    shard_align_params(model, mesh, tp=False)
+    t1 = time.perf_counter()
+    m_loss, m_counts, m_after = _train_once(model, tcfg, stacked, mesh)
+    m_ms = (time.perf_counter() - t1) * 1e3
+    same = all(torch.equal(m_after[n], u_after[n]) for n in u_after)
+    n_layer = wcfg.n_audio_layer
+    expected = {"la_log10_mel": 1, "la_attention_fwd": n_layer, "la_attention_dkdv": n_layer,
+                "la_attention_dq": n_layer}
+    log(f"[mesh-a] train step whisper-medium bf16, 1 x {TRAIN_B} x {SECONDS} s: unmeshed "
+        f"{u_ms:.1f} ms, over the world-of-one mesh {m_ms:.1f} ms (losses equal: "
+        f"{m_loss == u_loss}, parameters equal: {same}); losses {json.dumps(u_loss)}; "
+        f"launches {m_counts}")
+    if m_loss != u_loss or not same:
+        raise AssertionError("(a) the meshed train step differs from the unmeshed one")
+    if m_counts != expected or u_counts != expected:
+        raise AssertionError(f"(a) train launches {m_counts}, expected {expected}")
+    del model, weights, u_after, m_after
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"[mesh-a] part (a) passed in {time.perf_counter() - t0:.1f} s on {card}")
+    return u_segs, u_enc
+
+
+def _mesh_rank(rank, tmp, device_type):
+    """One of part (b) and (c)'s two processes on the card, over gloo."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv", rank=rank, world_size=2)
+    try:
+        from lyricalignment_tpu_torch import kernels
+        from lyricalignment_tpu_torch.parallel.mesh import make_mesh, shard_align_params
+
+        if dev.type == "cuda":
+            kernels.library()
+        out = {}
+        # (b): whisper-medium alignment tensor-parallel over the two ranks
+        t0 = time.perf_counter()
+        records, mel = _mesh_inputs(tmp, dev)
+        model = _medium_align_model(dev)
+        mesh = make_mesh(1, 2, dev.type)
+        shard_align_params(model, mesh, tp=True)
+        out["heads"] = model.whisper_model.encoder.blocks[0].attn.n_head
+        _align(model, records[:2], mesh_model=2)  # first-use allocations
+        segs, out["b_counts"], out["b_wall"] = _align(model, records, mesh_model=2)
+        with torch.inference_mode():
+            enc = model.whisper_model.embed_audio(mel)
+        torch.save(enc.cpu(), os.path.join(tmp, f"mesh_enc_rank{rank}.pt"))
+        out["b_segs"] = segs
+        del model, enc
+        tiny = _mesh_tiny_model(dev)
+        shard_align_params(tiny, mesh, tp=True)
+        out["tiny_segs"], out["tiny_counts"], _ = _align(tiny, records, mesh_model=2)
+        out["b_seconds"] = time.perf_counter() - t0
+        del tiny
+        torch.cuda.empty_cache()
+        # (c): whisper-tiny train step data-parallel over the two ranks
+        t0 = time.perf_counter()
+        model, tcfg, stacked = _mesh_train_setup(dev)
+        shard_align_params(model, make_mesh(2, 1, dev.type), tp=False)
+        out["c_losses"], out["c_counts"], _ = _train_once(model, tcfg, stacked,
+                                                           model.mesh)
+        out["c_seconds"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_mesh_ranks(tmp, dev):
+    """Parts (b) and (c)'s two processes (spawned after the parent freed its
+    models); killed if they outlast ``MESH_SPAWN_TIMEOUT``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_mesh_rank, args=(tmp, dev.type), nprocs=2, join=False,
+                             start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_SPAWN_TIMEOUT:
+                raise AssertionError(f"parts (b) and (c) did not end in {MESH_SPAWN_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    outs = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"mesh_rank{rank}.json")) as f:
+            outs.append(json.load(f))
+    return outs, time.perf_counter() - t0
+
+
+def phase_mesh(dev, card, tmp):
+    """Phase 9 (see the module docstring): (a) in this process, then (b)
+    and (c) in two spawned processes that share the card over gloo. Returns
+    rank 0's launches of (b) and of (c)."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+
+    mode = "no card" if dev.type != "cuda" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[mesh] compute mode {mode!r} on {card}")
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"compute mode {mode}: two processes cannot share the card, so "
+                             f"parts (b) and (c) cannot run")
+    requests = _write_requests(tmp, [float(SECONDS)] * MESH_B, seed=9)
+    with open(os.path.join(tmp, "mesh_requests.json"), "w", encoding="utf-8") as f:
+        json.dump(requests, f)
+    u_segs, u_enc = phase_mesh_world_of_one(dev, card, tmp)
+
+    # the single-process references: (b)'s encoder and segments computed in
+    # float32 on the same bf16-rounded weights (what bf16 rounding is
+    # measured against), (b)'s tiny model, (c)'s train step
+    records, mel = _mesh_inputs(tmp, dev)
+    model = _medium_align_model(dev, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        enc32 = model.whisper_model.embed_audio(mel)
+    segs32, _, _ = _align(model, records)
+    del model, mel
+    tiny_segs, _, _ = _align(_mesh_tiny_model(dev), records)
+    model, tcfg, stacked = _mesh_train_setup(dev)
+    c_ref, _, _ = _train_once(model, tcfg, stacked)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    outs, wall = _spawn_mesh_ranks(tmp, dev)
+    medium = WHISPER_CONFIGS["medium"]
+    expected = {"la_log10_mel": 1, "la_bias_attention": medium.n_audio_layer, "la_row_lse": 1,
+                "la_viterbi": 1}
+    base32 = rel_l2(u_enc, enc32)
+    base_share = _within_frame(u_segs, segs32)
+    for rank, out in enumerate(outs):
+        enc = torch.load(os.path.join(tmp, f"mesh_enc_rank{rank}.pt")).to(dev)
+        rel16, rel32 = rel_l2(enc, u_enc), rel_l2(enc, enc32)
+        share16, share32 = _within_frame(out["b_segs"], u_segs), _within_frame(out["b_segs"], segs32)
+        t_flips, t_worst = _frame_flips(out["tiny_segs"], tiny_segs)
+        log(f"[mesh-b] rank {rank}: whisper-medium bf16 --mesh-model 2 over gloo, "
+            f"{out['heads']} of {medium.n_audio_head} heads a block, B={MESH_B} x {SECONDS} s: "
+            f"align_records {out['b_wall']:.3f} s; encoder rel-L2 against float32 on the same "
+            f"weights {rel32:.3e} (the single bf16 process's {base32:.3e}; <= 1.1x), against "
+            f"the single bf16 process {rel16:.3e}; onsets/offsets within a frame of float32's "
+            f"{share32:.4f} (the single bf16 process's {base_share:.4f}; at most 0.01 below), "
+            f"of the single bf16 process's {share16:.4f}; tiny float32 model {t_flips} moved, "
+            f"at most {t_worst:.2e} s (<= 1e-4); launches {out['b_counts']}; part (b) "
+            f"{out['b_seconds']:.1f} s")
+        if out["heads"] != medium.n_audio_head // 2 or out["b_counts"] != expected:
+            raise AssertionError(f"(b) rank {rank}: {out['heads']} heads, launches "
+                                 f"{out['b_counts']}, expected {medium.n_audio_head // 2} "
+                                 f"and {expected}")
+        if rel32 > 1.1 * base32 or share32 < base_share - 0.01 or t_worst > 1e-4:
+            raise AssertionError(f"(b) rank {rank}: tensor parallelism adds error beyond the "
+                                 f"bf16 rounding of one process")
+        rel = max(abs(out["c_losses"][k] - v) / max(abs(v), 1e-6) for k, v in c_ref.items())
+        log(f"[mesh-c] rank {rank}: whisper-tiny train step --mesh-data 2 over gloo, 2 x 2 "
+            f"x {SECONDS} s, align and transcript samples on different ranks: losses max "
+            f"rel diff {rel:.2e} against the single-process step (<= 1e-4); launches "
+            f"{out['c_counts']}; part (c) {out['c_seconds']:.1f} s")
+        if rel > 1e-4:
+            raise AssertionError(f"(c) rank {rank}: losses {out['c_losses']} against {c_ref}")
+        for name in TRAIN_KERNELS:
+            if out["c_counts"].get(name, 0) <= 0:
+                raise AssertionError(f"(c) rank {rank}: kernel {name} was not launched")
+    log(f"[mesh] parts (b) and (c): two processes on {card}, {wall:.1f} s from spawn to exit")
+    return outs[0]["b_counts"], outs[0]["c_counts"]
+
+
 def main() -> int:
     try:
         import torch
@@ -2594,6 +3065,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             serve_counts = phase_serve(dev, card, tmp)
         log(f"[serve] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh_tp_counts, mesh_dp_counts = phase_mesh(dev, card, tmp)
+        log(f"[mesh] phase passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
@@ -2625,6 +3102,10 @@ def main() -> int:
         row["transcribe_launches"] = transcribe_counts.get(launcher, 0)
         row["longform_song_launches"] = song["song_counts"].get(launcher, 0)
         row["serve_launches"] = serve_counts.get(launcher, 0)
+        # each rank's launches in phase "mesh": (b) the alignment batch under
+        # --mesh-model 2, (c) the train step under --mesh-data 2
+        row["mesh_model2_rank_launches"] = mesh_tp_counts.get(launcher, 0)
+        row["mesh_data2_rank_launches"] = mesh_dp_counts.get(launcher, 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

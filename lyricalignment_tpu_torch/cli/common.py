@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: device choice, seeding, tokenizers, model config,
-initialisation and model-dir loading.
+"""Shared CLI plumbing: device choice, process start under a mesh,
+seeding, tokenizers, model config, initialisation and model-dir loading.
 
 Port of ``lyricalignment_tpu/cli/common.py:29-204``. A model dir holds
 ``args.json`` + ``model_args.json`` + reference checkpoints
@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lyricalignment_tpu_torch.models.align_model import (
     AlignModel,
@@ -27,6 +28,7 @@ from lyricalignment_tpu_torch.models.convert import (
     load_openai_checkpoint,
     load_reference_checkpoint,
 )
+from lyricalignment_tpu_torch.parallel.mesh import DATA_AXIS, axis_size, make_mesh
 from lyricalignment_tpu_torch.models.whisper import (
     WHISPER_CONFIGS,
     WHISPER_DIMS,
@@ -56,6 +58,64 @@ def resolve_device(device: str = "cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def init_distributed(device: str = "cuda") -> torch.device:
+    """Join the run's process group and return this rank's device: torchrun's
+    ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` (and ``MASTER_ADDR`` /
+    ``MASTER_PORT``) from the environment, ``nccl`` on ``cuda`` and ``gloo``
+    on ``cpu``; a process started without torchrun is a world of one. On
+    ``cuda`` the rank's card is ``LOCAL_RANK`` and :func:`resolve_device`'s
+    rule holds per rank: no CUDA is an error, never a quiet CPU run. A
+    process group the caller already started is joined as it is."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://",
+                                    rank=int(os.environ["RANK"]),
+                                    world_size=int(os.environ["WORLD_SIZE"]))
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return dev
+
+
+def add_mesh_args(parser: argparse.ArgumentParser, what: str) -> None:
+    """``--mesh-data`` / ``--mesh-model`` (JAX's flags and semantics: 0 =
+    single device, -1 = the rest of the world)."""
+    parser.add_argument("--mesh-data", type=int, default=0,
+                        help=f"shard {what} over N ranks (data parallel; 0 = single "
+                             f"device, -1 = the rest of the world); the batch size must "
+                             f"be divisible by N")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="tensor-shard the whisper backbone over N ranks "
+                             "(Megatron TP; combine with --mesh-data)")
+
+
+def model_mesh(model, args, device: torch.device, shard, batch_size: int):
+    """The mesh ``model`` runs on for ``args.mesh_data`` / ``args.mesh_model``
+    (None: one device, ``--mesh-data 0 --mesh-model 1``): the one it was
+    sharded on, or a new ("data", "model") mesh over the process group that
+    :func:`init_distributed` joins, which ``shard``
+    (``parallel.mesh.shard_align_params`` or ``shard_whisper``) cuts it for
+    here, tensor-parallel when the model axis is above 1. The world must
+    hold ``mesh_data * mesh_model`` ranks (``-1`` takes the rest), or it
+    raises; a ``batch_size`` that the data axis does not divide exits, as in
+    JAX."""
+    mesh_data, mesh_model = getattr(args, "mesh_data", 0), getattr(args, "mesh_model", 1)
+    if not mesh_data and mesh_model <= 1:
+        return None
+    if getattr(model, "mesh", None) is None:
+        dev = init_distributed(device.type)
+        shard(model, make_mesh(data=mesh_data or -1, model=mesh_model, device_type=dev.type),
+              tp=mesh_model > 1)
+    data = axis_size(model.mesh, DATA_AXIS)
+    if batch_size % data:
+        raise SystemExit(f"batch size {batch_size} not divisible by the data axis ({data})")
+    return model.mesh
 
 
 def set_seed(seed: int) -> None:

@@ -1,14 +1,25 @@
 """Alignment evaluation CLI: forced-align test data, report MAE.
 
 Port of ``lyricalignment_tpu/cli/inference_alignment.py`` (the reference's
-``inference_alignment.py:126-214``) on one device: records are grouped by
-length bucket and aligned a batch at a time, batches padded to the next
-power of two; the GRU and the Viterbi are masked to each sample's true frame
-count (round(mel_len / 2)), so results at valid frames equal the reference's
+``inference_alignment.py:126-214``): records are grouped by length bucket
+and aligned a batch at a time, batches padded to the next power of two; the
+GRU and the Viterbi are masked to each sample's true frame count
+(round(mel_len / 2)), so results at valid frames equal the reference's
 exact per-sample trim.
+
+``--mesh-data`` / ``--mesh-model`` run it over a ("data", "model") mesh of
+torchrun ranks (``parallel.mesh``): batches are padded to the full
+``--batch-size``, which the data axis must divide, each data rank aligns its
+rows with the backbone tensor-sharded over the model axis, and rank 0
+gathers the segments in input order and alone prints. ``--mesh-pipe`` (the
+JAX package's pipeline-staged encoder) is absent.
 
     python -m lyricalignment_tpu_torch.cli.inference_alignment \\
         -f test.json --model-dir result --bert-vocab vocab.txt --use-ctc-loss
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m lyricalignment_tpu_torch.cli.inference_alignment -f test.json \\
+        --model-dir result --bert-vocab vocab.txt --batch-size 8 \\
+        --mesh-data 2 --mesh-model 2
 """
 
 from __future__ import annotations
@@ -22,7 +33,12 @@ import numpy as np
 import torch
 
 from lyricalignment_tpu_torch import HOP_LENGTH, N_SAMPLES
-from lyricalignment_tpu_torch.cli.common import load_model_dir
+from lyricalignment_tpu_torch.cli.common import (
+    add_mesh_args,
+    init_distributed,
+    load_model_dir,
+    model_mesh,
+)
 from lyricalignment_tpu_torch.data.audio_io import audio_num_samples_16k, load_audio_file
 from lyricalignment_tpu_torch.data.records import read_data
 from lyricalignment_tpu_torch.models.align_model import forward_from_audio
@@ -30,6 +46,13 @@ from lyricalignment_tpu_torch.ops.viterbi import (
     frames_to_seconds,
     viterbi_align,
     viterbi_align_fused,
+)
+from lyricalignment_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    batch_sharding,
+    gather_objects,
+    is_primary,
+    shard_align_params,
 )
 from lyricalignment_tpu_torch.text.bert_tokenizer import (
     BertWordPieceTokenizer,
@@ -64,6 +87,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    add_mesh_args(p, "inference batches")
     p.add_argument("--bert-vocab", type=str, default=None,
                    help="bert-base-chinese vocab.txt (required for id parity)")
     p.add_argument("--synthetic-vocab", action="store_true",
@@ -85,13 +109,16 @@ def align_records(records, model, table, bert, args):
     """Yield (record, [[on, off], ...]) in input order.
 
     ``args`` carries use_ctc_loss, batch_size, bucket_seconds,
-    max_label_len, is_mixture and (optionally) no_fused_align; the batch
-    runs on the device of ``model``'s parameters.
+    max_label_len, is_mixture and (optionally) no_fused_align, mesh_data
+    and mesh_model; the batch runs on the device of ``model``'s parameters.
+    Under a mesh every rank reads every record, runs its data rank's rows of
+    each batch (padded to ``batch_size``) and gets every segment back.
     """
     device = next(model.parameters()).device
     mode = "ctc" if args.use_ctc_loss else "ce"
     batch_size = max(1, getattr(args, "batch_size", 1))
     fused = not getattr(args, "no_fused_align", False)
+    mesh = model_mesh(model, args, device, shard_align_params, batch_size)
     fc = model.align_rnn.fc
 
     buckets = {}
@@ -104,7 +131,10 @@ def align_records(records, model, table, bert, args):
         idxs = buckets[padded_len]
         for start in range(0, len(idxs), batch_size):
             group = idxs[start: start + batch_size]
-            B = min(1 << (len(group) - 1).bit_length(), batch_size)
+            # pad rows are dropped after the Viterbi; a mesh pads to the full
+            # batch so that every data rank holds the same number of rows
+            B = batch_size if mesh is not None else min(1 << (len(group) - 1).bit_length(),
+                                                         batch_size)
             a = np.zeros((B, padded_len), np.float32)
             labels = np.zeros((B, args.max_label_len), np.int32)
             lens = np.ones((B,), np.int32)
@@ -122,19 +152,22 @@ def align_records(records, model, table, bert, args):
                 mel_lens[j] = n // HOP_LENGTH
                 frames[j] = int(round(mel_lens[j] / 2.0))
 
+            rows = slice(None) if mesh is None else batch_sharding(mesh).rows(B)
             out, _ = forward_from_audio(
-                model, torch.from_numpy(a).to(device),
-                frame_lengths=torch.from_numpy(frames).to(device),
-                mel_lengths=torch.from_numpy(mel_lens).to(device),
+                model, torch.from_numpy(a[rows]).to(device),
+                frame_lengths=torch.from_numpy(frames[rows]).to(device),
+                mel_lengths=torch.from_numpy(mel_lens[rows]).to(device),
                 align_head_output="hidden" if fused else "logits")
             frames = np.minimum(frames, out.shape[1])
-            lab_t, len_t, fr_t = (torch.from_numpy(x) for x in (labels, lens, frames))
+            lab_t, len_t, fr_t = (torch.from_numpy(x[rows]) for x in (labels, lens, frames))
             if fused:
                 on, off = viterbi_align_fused(out, fc.weight, fc.bias, lab_t,
                                               len_t, fr_t, mode=mode)
             else:
                 on, off = viterbi_align(out, lab_t, len_t, fr_t, mode=mode)
             sec = frames_to_seconds(on, off).cpu().numpy()
+            if mesh is not None:
+                sec = np.concatenate(gather_objects(sec, mesh.get_group(DATA_AXIS)))
             for j, i in enumerate(group):
                 L = int(lens[j])
                 results[i] = [[float(s), float(e)] for s, e in sec[j, :L]]
@@ -151,9 +184,12 @@ def main(argv=None):
     if not os.path.exists(args.model_dir) or not os.path.exists(args.test_data):
         raise SystemExit("--model-dir and --test-data must exist")
 
+    device = args.device
+    if args.mesh_data or args.mesh_model > 1:
+        device = str(init_distributed(args.device))
     _, model, _ = load_model_dir(args.model_dir, args.model_name, use_bf16=args.bf16,
                                  fast_gelu=args.fast_gelu, int8_encoder=args.int8_encoder,
-                                 device=args.device)
+                                 device=device)
     if args.bert_vocab:
         bert = BertWordPieceTokenizer(vocab_path=args.bert_vocab)
     elif args.synthetic_vocab:
@@ -166,16 +202,19 @@ def main(argv=None):
 
     total_mae = 0.0
     cnt = 0
+    primary = is_primary()
     for record, segments in align_records(records, model, table, bert, args):
         if record.lyric_onset_offset is None:
             continue  # reference skips samples without ground truth (:156-157)
         sample_mae = mae([record.lyric_onset_offset], [segments])
         total_mae += sample_mae
         cnt += 1
-        print(f"{os.path.basename(record.audio_path)}: MAE={sample_mae:.4f}")
+        if primary:
+            print(f"{os.path.basename(record.audio_path)}: MAE={sample_mae:.4f}")
 
     avg_mae = total_mae / max(cnt, 1)
-    print("Average MAE:", avg_mae)
+    if primary:
+        print("Average MAE:", avg_mae)
     return avg_mae
 
 

@@ -1,7 +1,7 @@
 """Transcription CLI: batched KV-cached beam search -> result JSON.
 
 Port of ``lyricalignment_tpu/cli/inference_transcript.py`` (the
-reference's ``inference_transcript.py:72-190``) on one device: loads a
+reference's ``inference_transcript.py:72-190``): loads a
 fine-tuned AlignModel's whisper (or a pretrained OpenAI checkpoint with
 ``--use-pretrained --whisper-checkpoint``), transcribes each record with
 beam search (default beam 5) and writes ``[{song_id, song_path, lyric?,
@@ -15,6 +15,15 @@ through whisper's sequential seek decode (``decode.longform``):
 timestamp-rule decoding, condition-on-previous-text prompts, seek to the
 last complete timestamp pair. ``--fast-windows`` switches long audio to
 independent batched 30 s windows instead.
+
+``--mesh-data`` / ``--mesh-model`` shard the batched path over a ("data",
+"model") mesh of torchrun ranks (``parallel.mesh``): each batch is padded to
+``--batch-size``, which the data axis must divide, each data rank decodes
+its rows with the backbone tensor-sharded over the model axis (the
+vocab-sharded logits gathered before beam selection), and rank 0 gathers the
+texts and alone writes the output. Long-form songs run whole on every data
+rank; the fallback ladder's sampled retries draw from each shard's own
+generator.
 
     python -m lyricalignment_tpu_torch.cli.inference_transcript \\
         -f test.json --model-dir result --whisper-bpe multilingual.tiktoken
@@ -34,7 +43,10 @@ import torch
 from lyricalignment_tpu_torch import N_FRAMES, N_SAMPLES
 from lyricalignment_tpu_torch.cli.common import (
     add_asset_args,
+    add_mesh_args,
+    init_distributed,
     load_model_dir,
+    model_mesh,
     resolve_device,
     set_seed,
 )
@@ -44,6 +56,13 @@ from lyricalignment_tpu_torch.decode.beam import beam_search, greedy_decode
 from lyricalignment_tpu_torch.models.convert import load_openai_checkpoint
 from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig, bf16_resident
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
+from lyricalignment_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    batch_sharding,
+    gather_objects,
+    is_primary,
+    shard_whisper,
+)
 from lyricalignment_tpu_torch.text.whisper_tokenizer import (
     WhisperTokenizer,
     non_speech_token_ids,
@@ -94,6 +113,7 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (the plain PyTorch versions "
                         "of the kernels)")
+    add_mesh_args(p, "the batched (<= 30 s) transcription path")
     add_asset_args(p)
     return p.parse_args(argv)
 
@@ -119,6 +139,7 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
     prompt_ids = list(whisper_tok.sot_sequence) + [whisper_tok.no_timestamps]
     suppress_ids, begin_suppress_ids = suppress_token_ids(whisper_tok)
     group = getattr(args, "decode_group", 1)
+    mesh = model_mesh(whisper, args, dev, shard_whisper, args.batch_size)
 
     @torch.no_grad()
     def encode(audio):
@@ -177,7 +198,13 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
     bs = args.batch_size
     for i in range(0, len(work), bs):
         chunk = work[i: i + bs]
-        xa = encode(torch.from_numpy(np.stack([w[2] for w in chunk])).to(dev))
+        if mesh is not None:
+            # pad rows keep the data shards equal; they are dropped below
+            chunk = [chunk[r] if r < len(chunk) else None
+                     for r in range(bs)[batch_sharding(mesh).rows(bs)]]
+        audio = np.stack([np.zeros((N_SAMPLES,), np.float32) if w is None else w[2]
+                          for w in chunk])
+        xa = encode(torch.from_numpy(audio).to(dev))
         prompt = torch.tensor([prompt_ids] * len(chunk), dtype=torch.int64, device=dev)
         if args.temperature_fallback:
             from lyricalignment_tpu_torch.decode.transcribe import decode_with_fallback
@@ -187,24 +214,13 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
                 beam_size=args.beam_size, max_new_tokens=args.max_new_tokens,
                 suppress_ids=suppress_ids, begin_suppress_ids=begin_suppress_ids,
                 group=group)
-            for (ri, w, _), entry in zip(chunk, entries):
-                texts.setdefault(ri, {})[w] = entry["text"]
-            continue
-        if args.beam_size > 1:
-            tokens, _ = beam_search(
-                whisper, wcfg, xa, prompt, beam_size=args.beam_size,
-                max_new_tokens=args.max_new_tokens, eot=whisper_tok.eot,
-                suppress_ids=suppress_ids, begin_suppress_ids=begin_suppress_ids,
-                length_penalty=args.length_penalty,
-                patience=getattr(args, "patience", None), group=group)
+            done = [(w[0], w[1], e["text"]) for w, e in zip(chunk, entries) if w is not None]
         else:
-            tokens = greedy_decode(
-                whisper, wcfg, xa, prompt, max_new_tokens=args.max_new_tokens,
-                eot=whisper_tok.eot, suppress_ids=suppress_ids,
-                begin_suppress_ids=begin_suppress_ids)
-        for (ri, w, _), row_tokens in zip(chunk, tokens.cpu().numpy()):
-            row = [int(t) for t in row_tokens if int(t) != whisper_tok.eot]
-            text = whisper_tok.decode(row) if whisper_tok.has_bpe else json.dumps(row)
+            done = _decode_texts(whisper, wcfg, xa, prompt, chunk, whisper_tok, args,
+                                 suppress_ids, begin_suppress_ids, group)
+        if mesh is not None:
+            done = [d for part in gather_objects(done, mesh.get_group(DATA_AXIS)) for d in part]
+        for ri, w, text in done:
             texts.setdefault(ri, {})[w] = text
 
     results = []
@@ -219,8 +235,35 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
             entry["lyric"] = r.text
         entry["inference"] = text
         results.append(entry)
-        print(entry["song_id"], "->", text[:60])
+        if is_primary():
+            print(entry["song_id"], "->", text[:60])
     return results
+
+
+def _decode_texts(whisper, wcfg, xa, prompt, chunk, whisper_tok, args, suppress_ids,
+                  begin_suppress_ids, group):
+    """Beam (or greedy) decode of a batch of windows -> [(record index,
+    window, text)] of its real rows (``chunk`` entries; None for pad)."""
+    if args.beam_size > 1:
+        tokens, _ = beam_search(
+            whisper, wcfg, xa, prompt, beam_size=args.beam_size,
+            max_new_tokens=args.max_new_tokens, eot=whisper_tok.eot,
+            suppress_ids=suppress_ids, begin_suppress_ids=begin_suppress_ids,
+            length_penalty=args.length_penalty,
+            patience=getattr(args, "patience", None), group=group)
+    else:
+        tokens = greedy_decode(
+            whisper, wcfg, xa, prompt, max_new_tokens=args.max_new_tokens,
+            eot=whisper_tok.eot, suppress_ids=suppress_ids,
+            begin_suppress_ids=begin_suppress_ids)
+    done = []
+    for item, row_tokens in zip(chunk, tokens.cpu().numpy()):
+        if item is None:
+            continue
+        row = [int(t) for t in row_tokens if int(t) != whisper_tok.eot]
+        text = whisper_tok.decode(row) if whisper_tok.has_bpe else json.dumps(row)
+        done.append((item[0], item[1], text))
+    return done
 
 
 def load_pretrained_whisper(path: str, bf16: bool, device: str, int8_cross_kv: bool = False):
@@ -246,7 +289,10 @@ def main(argv=None):
     if os.path.exists(args.output):
         print("File Exists, Pass")
         return
-    resolve_device(args.device)
+    device = args.device
+    if args.mesh_data or args.mesh_model > 1:
+        device = str(init_distributed(args.device))
+    resolve_device(device)
 
     whisper_tok = WhisperTokenizer(
         multilingual=True, language=args.language, task="transcribe",
@@ -256,12 +302,12 @@ def main(argv=None):
     if os.path.exists(args.model_dir) and not args.use_pretrained:
         mcfg, model, _ = load_model_dir(args.model_dir, "best", use_bf16=args.bf16,
                                         fast_gelu=args.fast_gelu,
-                                        int8_cross_kv=args.int8_cross_kv, device=args.device)
+                                        int8_cross_kv=args.int8_cross_kv, device=device)
         wcfg, whisper = mcfg.whisper, model.whisper_model
     elif args.whisper_checkpoint:
         print("Use pretrained model")
         wcfg, whisper = load_pretrained_whisper(args.whisper_checkpoint, args.bf16,
-                                                args.device, args.int8_cross_kv)
+                                                device, args.int8_cross_kv)
     else:
         raise SystemExit("--model-dir not found; pass --whisper-checkpoint for "
                          "a pretrained run (no network downloads available)")
@@ -277,6 +323,8 @@ def main(argv=None):
 
     records = read_data(args.test_data)
     results = transcribe_records(records, whisper, wcfg, whisper_tok, args)
+    if not is_primary():
+        return results
 
     Path(args.output).parent.mkdir(parents=True, exist_ok=True)
     with open(args.output, "w", encoding="utf-8") as f:

@@ -14,15 +14,29 @@ beside ``metrics.jsonl``; ``--profile-at-step N`` writes a profile of step N
 (``torch.profiler``, host spans ``data`` and ``train_step`` and the device's
 kernels) to ``save_dir/profile/trace.json``.
 
-Not ported yet (absent): the mesh and pipeline flags
-(``--mesh-data/--mesh-model/--mesh-pipe``). The whisper BPE codec
-(``--whisper-bpe``) is there, as in every CLI (``cli/common.py``).
+``--mesh-data`` / ``--mesh-model`` train over a ("data", "model") mesh of
+torchrun ranks (``parallel.mesh``): every rank builds the same seeded model
+and the same global stacked batch, takes its data rank's rows (the train
+batch size must divide the data axis), runs the backbone tensor-sharded over
+the model axis and sums the gradients over the data group
+(``train/trainer.py``); only rank 0 writes metrics, TensorBoard scalars,
+profiles and checkpoints, which hold the full state gathered from the
+shards, so a model dir written under any mesh loads unsharded and
+``--resume`` re-shards it. The dev set is evaluated whole on every data
+rank.
+
+Not ported yet (absent): the pipeline flags (``--mesh-pipe``,
+``--pipe-microbatches``). The whisper BPE codec (``--whisper-bpe``) is
+there, as in every CLI (``cli/common.py``).
 
 Example:
     python -m lyricalignment_tpu_torch.cli.train_multitask \\
         --train-data train.json --dev-data dev.json \\
         --whisper-model medium --train-alignment --train-transcript \\
         --use-ctc-loss --bert-vocab vocab.txt --save-dir result --bf16
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m lyricalignment_tpu_torch.cli.train_multitask ... \\
+        --train-batch-size 4 --mesh-data 2 --mesh-model 2
 """
 
 from __future__ import annotations
@@ -35,9 +49,12 @@ import torch
 
 from lyricalignment_tpu_torch.cli.common import (
     add_asset_args,
+    add_mesh_args,
     build_model_config,
     build_tokenizers,
+    init_distributed,
     init_model,
+    model_mesh,
     resolve_device,
     set_seed,
 )
@@ -49,6 +66,7 @@ from lyricalignment_tpu_torch.data.pipeline import (
 )
 from lyricalignment_tpu_torch.data.records import read_many
 from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+from lyricalignment_tpu_torch.parallel.mesh import is_primary, shard_align_params
 from lyricalignment_tpu_torch.text.pinyin import load_pronunciation_table
 from lyricalignment_tpu_torch.text.whisper_tokenizer import num_languages_for_vocab
 from lyricalignment_tpu_torch.train.checkpoints import (
@@ -115,16 +133,20 @@ def parse_args(argv=None):
                         "optimizer state and step from; the schedule continues")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of the kernels)")
+    add_mesh_args(p, "each micro-batch")
     add_asset_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    meshed = bool(args.mesh_data) or args.mesh_model > 1
+    device = init_distributed(args.device) if meshed else resolve_device(args.device)
+    primary = is_primary()
     set_seed(args.seed)
     os.makedirs(args.save_dir, exist_ok=True)
-    save_json(os.path.join(args.save_dir, "args.json"), vars(args))
+    if primary:
+        save_json(os.path.join(args.save_dir, "args.json"), vars(args))
 
     bert, whisper_tok = build_tokenizers(
         args, num_languages=num_languages_for_vocab(WHISPER_CONFIGS[args.whisper_model].n_vocab))
@@ -144,8 +166,9 @@ def main(argv=None):
         "train_alignment": args.train_alignment,
         "train_transcript": args.train_transcript,
     }
-    print(model_args)
-    save_json(os.path.join(args.save_dir, "model_args.json"), model_args)
+    if primary:
+        print(model_args)
+        save_json(os.path.join(args.save_dir, "model_args.json"), model_args)
 
     tcfg = TrainConfig(
         head_lr=args.lr, backbone_lr=args.backbone_lr, warmup_steps=args.warmup_steps,
@@ -173,29 +196,32 @@ def main(argv=None):
         for p in model.whisper_model.encoder.parameters():
             if p.dim() >= 2:
                 p.data = p.data.to(torch.bfloat16)
+    mesh = model_mesh(model, args, device, shard_align_params, args.train_batch_size)
+    if mesh is not None:
+        log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     state, tx = init_train_state(model, tcfg)
     if args.resume:
         restore_train_state(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step}")
+        log(f"resumed from {args.resume} at step {state.step}")
     start_step = state.step
-    train_step = make_train_step(tcfg, tx)
+    train_step = make_train_step(tcfg, tx, mesh)
     eval_step = make_eval_step(tcfg)
 
     init_losses = evaluate(eval_step, model, dev_loader)
-    print(f"Initial loss: {init_losses['total']:.4f}, "
-          f"align CE: {init_losses['align_ce']:.4f}, "
-          f"align CTC: {init_losses['align_ctc']:.4f}, "
-          f"transcript: {init_losses['trans_ce']:.4f}, "
-          f"transcript CTC: {init_losses['trans_ctc']:.4f}")
+    log(f"Initial loss: {init_losses['total']:.4f}, "
+        f"align CE: {init_losses['align_ce']:.4f}, "
+        f"align CTC: {init_losses['align_ctc']:.4f}, "
+        f"transcript: {init_losses['trans_ce']:.4f}, "
+        f"transcript CTC: {init_losses['trans_ctc']:.4f}")
     policy = BestCheckpointPolicy(args.save_dir, init_losses)
-    metrics = MetricLogger(args.save_dir, tensorboard=args.tensorboard)
+    metrics = MetricLogger(args.save_dir, tensorboard=args.tensorboard) if primary else None
     train_iter = infinite_batches(train_loader)
     avg = {k: 0.0 for k in init_losses}
     t_start = time.time()
     profiling = None
 
     for step in range(start_step + 1, args.train_steps + 1):
-        if args.profile_at_step and step == args.profile_at_step:
+        if args.profile_at_step and step == args.profile_at_step and primary:
             profiling = profile_session(os.path.join(args.save_dir, "profile"))
             profiling.__enter__()
         with trace("data"):
@@ -209,7 +235,7 @@ def main(argv=None):
             profiling.__exit__(None, None, None)
             profiling = None
         losses = {k: float(v) for k, v in losses.items()}
-        if step % args.log_every == 0:
+        if step % args.log_every == 0 and metrics is not None:
             metrics.log(step, losses)
         for k in avg:
             avg[k] += losses[k]
@@ -217,21 +243,28 @@ def main(argv=None):
         if step % args.eval_steps == 0:
             eval_losses = evaluate(eval_step, model, dev_loader)
             n = args.eval_steps
-            print(f"Step {step}: valid loss={eval_losses['total']:.4f} "
-                  f"align_ce={eval_losses['align_ce']:.4f} "
-                  f"align_ctc={eval_losses['align_ctc']:.4f} "
-                  f"trans_ce={eval_losses['trans_ce']:.4f} "
-                  f"trans_ctc={eval_losses['trans_ctc']:.4f} | "
-                  f"train loss={avg['total'] / n:.4f} "
-                  f"({(time.time() - t_start) / (step - start_step):.2f}s/step)")
+            log(f"Step {step}: valid loss={eval_losses['total']:.4f} "
+                f"align_ce={eval_losses['align_ce']:.4f} "
+                f"align_ctc={eval_losses['align_ctc']:.4f} "
+                f"trans_ce={eval_losses['trans_ce']:.4f} "
+                f"trans_ctc={eval_losses['trans_ctc']:.4f} | "
+                f"train loss={avg['total'] / n:.4f} "
+                f"({(time.time() - t_start) / (step - start_step):.2f}s/step)")
             avg = {k: 0.0 for k in avg}
             saved = policy.update(eval_losses, state, save_all=args.save_all_checkpoints)
             for name, fired in saved.items():
                 if fired:
-                    print(f"Saving The {name} model")
+                    log(f"Saving The {name} model")
 
-    metrics.close()
-    print(f"done in {time.time() - t_start:.1f}s")
+    if metrics is not None:
+        metrics.close()
+    log(f"done in {time.time() - t_start:.1f}s")
+
+
+def log(msg: str) -> None:
+    """Print on rank 0 (every process outside a distributed run)."""
+    if is_primary():
+        print(msg)
 
 
 if __name__ == "__main__":

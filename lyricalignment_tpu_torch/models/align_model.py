@@ -25,7 +25,7 @@ from lyricalignment_tpu_torch.models.align_head import (
     align_head_apply,
     align_head_hidden,
 )
-from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig
+from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig, init_whisper_weights
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
 
 
@@ -71,24 +71,10 @@ def init_head_weights(head: AlignHead, generator: torch.Generator) -> AlignHead:
 @torch.no_grad()
 def init_weights(model: AlignModel, generator: torch.Generator) -> AlignModel:
     """Random init with the JAX package's distributions, drawn from
-    ``generator`` (which must live on the parameters' device): linear and
-    conv weights U(+-1/sqrt(fan_in)) with zero biases, LayerNorm ones/zeros,
-    token embedding N(0, 0.02), decoder positions zero; then the head
-    (:func:`init_head_weights`)."""
-    uniform = lambda p, s: p.uniform_(-s, s, generator=generator)
-    for name, p in model.whisper_model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("token_embedding.weight"):
-            p.normal_(0.0, 0.02, generator=generator)
-        elif name.endswith("decoder.positional_embedding"):
-            p.zero_()
-        elif "_ln." in name or name.split(".")[-2] in ("ln_post", "ln"):
-            p.fill_(1.0 if leaf == "weight" else 0.0)
-        elif leaf == "bias":
-            p.zero_()
-        else:  # linear [out, in] or conv [out, in, k]
-            fan_in = p.shape[1] * (p.shape[2] if p.dim() == 3 else 1)
-            uniform(p, 1.0 / math.sqrt(fan_in))
+    ``generator`` (which must live on the parameters' device): the backbone
+    (:func:`~lyricalignment_tpu_torch.models.whisper.init_whisper_weights`),
+    then the head (:func:`init_head_weights`)."""
+    init_whisper_weights(model.whisper_model, generator)
     init_head_weights(model.align_rnn, generator)
     return model
 
@@ -109,6 +95,7 @@ def forward_from_audio(
     frame_lengths: Optional[torch.Tensor] = None,
     mel_lengths: Optional[torch.Tensor] = None,
     align_head_output: str = "logits",
+    dropout_rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Raw padded audio f32[B, samples] (+ decoder input tokens ``y_in``
     int[B, S]) -> ``(align_out, transcribe_logits)``.
@@ -125,7 +112,8 @@ def forward_from_audio(
     encoder frame count; ``mel_lengths`` (int[B], default
     ``2 * frame_lengths``) zeroes the mel past each sample's true length, as
     the reference computes the mel on exact-length audio and zero-pads the
-    mel. ``generator`` draws the head's dropout (none without one);
+    mel. ``generator`` draws the head's dropout (none without one), of
+    rows ``dropout_rows`` (start, total) of a sharded batch's mask if given;
     ``remat`` checkpoints every transformer block. Under
     ``cfg.freeze_encoder`` the encoder runs under ``torch.no_grad()``, so
     its backward never runs.
@@ -163,7 +151,8 @@ def forward_from_audio(
     align_out = None
     if cfg.train_alignment:
         head_fn = {"hidden": align_head_hidden, "logits": align_head_apply}[align_head_output]
-        align_out = head_fn(model.align_rnn, align_embed, frame_lengths, cfg.dropout, generator)
+        align_out = head_fn(model.align_rnn, align_embed, frame_lengths, cfg.dropout, generator,
+                            dropout_rows)
     transcribe_logits = None
     if cfg.train_transcript and y_in is not None:
         transcribe_logits = model.whisper_model.decoder_logits(y_in, embed_for_decoder,

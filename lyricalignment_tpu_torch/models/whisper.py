@@ -28,6 +28,15 @@ or quantised per call; ``int8_cross_kv`` keeps the decode cache's cross K
 (scale per key over Dh) and V (scale per head and channel over T) in int8
 with both cross contractions on integer values.
 
+Sharded by ``parallel.mesh`` (tensor parallelism), each attention holds
+its rank's heads and each MLP its rank's hidden columns; the row-parallel
+linears sum their partial products over the model group and add the bias
+after the sum, the token embedding may be vocab-sharded (the logits are
+gathered), and the decode cache holds the rank's heads. The
+sequence-parallel encode (``encode_audio(sequence_sharding=...)``) keeps a
+rank's frames through the blocks and lets the attention kernels see every
+frame of a rank's heads by an all-to-all.
+
 KV-cached decoding (``init_decode_cache``, ``prime_decode_cache``,
 ``decode_step``) keeps the JAX split cache: cross K/V and the prompt's K/V
 one row per sample, the generated K/V one row per beam row, preallocated at
@@ -39,17 +48,27 @@ so a step reads nothing back to the host.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
 from lyricalignment_tpu_torch.ops.attention import onepass_self_attention, self_attention
+from lyricalignment_tpu_torch.parallel.mesh import (
+    all_reduce_max,
+    copy_to_model,
+    gather_dim,
+    heads_to_seq,
+    reduce_from_model,
+    seq_to_heads,
+)
 
 
 @dataclass(frozen=True)
@@ -146,12 +165,14 @@ class Int8Linear(nn.Module):
         self.register_buffer("bias", None if bias is None else bias.detach())
 
 
-def _quantize_int8(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_int8(x: torch.Tensor, dim: int, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax int8 quantisation along ``dim``: (q int8, scale f32
     with ``dim`` kept as 1), q * scale ~= x; round half to even, as
-    ``jnp.round``."""
+    ``jnp.round``. ``group``: ``dim`` is split over the model group, whose
+    absmax is the max of every rank's (GSPMD's over the whole dim)."""
     x32 = x.float()
-    scale = x32.abs().amax(dim=dim, keepdim=True).clamp(min=1e-12) / 127.0
+    absmax = all_reduce_max(x32.abs().amax(dim=dim, keepdim=True), group)
+    scale = absmax.clamp(min=1e-12) / 127.0
     return torch.clamp(torch.round(x32 / scale), -127.0, 127.0).to(torch.int8), scale
 
 
@@ -163,19 +184,22 @@ def _int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b_t.contiguous().t())
 
 
-def _linear_int8(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _linear_int8(lin: nn.Module, x: torch.Tensor, group=None) -> torch.Tensor:
     """W8A8 linear (JAX ``_linear_int8``): x quantised per token, the weight
     per output channel (``Int8Linear``'s resident pair, else quantised
     here), the int8 x int8 -> int32 product, then ``y * (xs * ws) + b`` in
-    float32, cast to x's dtype. Inference only."""
-    xq, xs = _quantize_int8(x, -1)                       # [..., in], [..., 1]
+    float32, cast to x's dtype. Inference only. ``group``: a row-parallel
+    linear, whose input dim is split over the model group: both absmaxes
+    are all-reduced (MAX) over it, and the int32 partial products summed
+    (exact) before the rescale and the bias."""
+    xq, xs = _quantize_int8(x, -1, group)                # [..., in], [..., 1]
     if isinstance(lin, Int8Linear):
         wq, ws = lin.weight_q, lin.weight_s
     else:
-        wq, ws = _quantize_int8(lin.weight, 1)
+        wq, ws = _quantize_int8(lin.weight, 1, group)
         ws = ws[:, 0]
     y = _int_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*x.shape[:-1], wq.shape[0])
-    y = y.float() * (xs * ws)
+    y = reduce_from_model(y, group).float() * (xs * ws)
     if lin.bias is not None:
         y = y + lin.bias.float()
     return y.to(x.dtype)
@@ -201,6 +225,19 @@ def _int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
         return torch.einsum(equation, a.float(), b.float())
 
 
+def _row_linear(lin: nn.Module, x: torch.Tensor, group, int8: bool = False) -> torch.Tensor:
+    """A linear that is row-parallel under tensor parallelism (attention
+    out, fc2): x holds this rank's input columns, the partial products are
+    summed over ``group`` ("g") and the bias is added once, after the sum.
+    Unsharded (``group`` None) it is the plain linear."""
+    if int8:
+        return _linear_int8(lin, x, group)
+    if group is None:
+        return _linear(lin, x)
+    y = reduce_from_model(F.linear(x, lin.weight.to(x.dtype)), group)
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
 def _split_heads(y: torch.Tensor, n_head: int) -> torch.Tensor:
     b, t, d = y.shape
     return y.view(b, t, n_head, d // n_head)
@@ -212,39 +249,57 @@ def _causal_mask(n: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
+    """q / k / v / out projections. Sharded by ``parallel.mesh``, it holds
+    ``n_head`` of the model's heads (q / k / v column-parallel, out
+    row-parallel) and the model ``group`` its partial outputs are summed
+    over; the head dim (64 for every Whisper size) and the q / k scale
+    d_h^-0.25 come from the local projection width over the local heads."""
+
     def __init__(self, n_state: int, n_head: int):
         super().__init__()
         self.n_head = n_head
+        self.group = None
         self.query = nn.Linear(n_state, n_state)
         self.key = nn.Linear(n_state, n_state, bias=False)
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
     def self_attention(self, x: torch.Tensor, key_bias: Optional[torch.Tensor] = None,
-                       int8: bool = False) -> torch.Tensor:
+                       int8: bool = False, seq_group=None) -> torch.Tensor:
         """Encoder self-attention of x [B, T, D] through the attention
         kernels: ``self_attention``, or ``onepass_self_attention`` when a
         ``key_bias`` [1, T] is given. ``int8`` runs the four projections
-        W8A8."""
-        b, t, d = x.shape
+        W8A8. ``seq_group``: x holds this rank's T / m frames of the
+        sequence-parallel encode; q, k and v go through the sequence ->
+        heads all-to-all, so the kernels see every frame of H / m heads,
+        and the output comes back by the inverse all-to-all."""
+        b, t, _ = x.shape
         lin = _linear_int8 if int8 else _linear
-        scale = (d // self.n_head) ** -0.25
-        q = _split_heads(lin(self.query, x), self.n_head) * scale
+        x = copy_to_model(x, self.group)
+        q = _split_heads(lin(self.query, x), self.n_head)
+        scale = q.shape[-1] ** -0.25
+        q = q * scale
         k = _split_heads(lin(self.key, x), self.n_head) * scale
         v = _split_heads(lin(self.value, x), self.n_head).contiguous()
+        if seq_group is not None:
+            q, k, v = (seq_to_heads(y, seq_group) for y in (q, k, v))
         out = (self_attention(q, k, v) if key_bias is None
                else onepass_self_attention(q, k, v, key_bias))
-        return lin(self.out, out.reshape(b, t, d))
+        if seq_group is not None:
+            out = heads_to_seq(out, seq_group)
+        return _row_linear(self.out, out.reshape(b, t, -1), self.group, int8)
 
     def attend(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Decoder attention as plain matmuls (``_attention``'s einsum
         path): causal self-attention with ``mask`` [S, S], or
         cross-attention to ``xa`` [B, T, D]."""
-        b, s, d = x.shape
-        scale = (d // self.n_head) ** -0.25
-        src = x if xa is None else xa
-        q = _split_heads(_linear(self.query, x), self.n_head) * scale
+        b, s, _ = x.shape
+        x = copy_to_model(x, self.group)
+        src = x if xa is None else copy_to_model(xa, self.group)
+        q = _split_heads(_linear(self.query, x), self.n_head)
+        scale = q.shape[-1] ** -0.25
+        q = q * scale
         k = _split_heads(_linear(self.key, src), self.n_head)
         v = _split_heads(_linear(self.value, src), self.n_head)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k * scale)
@@ -252,7 +307,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits + mask
         weights = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return _linear(self.out, out.reshape(b, s, d))
+        return _row_linear(self.out, out.reshape(b, s, -1), self.group)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -269,15 +324,20 @@ class ResidualAttentionBlock(nn.Module):
             nn.GELU(approximate="tanh" if fast_gelu else "none"),
             nn.Linear(4 * n_state, n_state))
         self.mlp_ln = nn.LayerNorm(n_state)
+        # the model group once parallel.mesh shards the MLP (fc1
+        # column-parallel, fc2 row-parallel)
+        self.mlp_group = None
 
     def _mlp(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
         lin = _linear_int8 if int8 else _linear
-        h = _layer_norm(self.mlp_ln, x)
-        return x + lin(self.mlp[2], self.mlp[1](lin(self.mlp[0], h)))
+        h = copy_to_model(_layer_norm(self.mlp_ln, x), self.mlp_group)
+        return x + _row_linear(self.mlp[2], self.mlp[1](lin(self.mlp[0], h)),
+                               self.mlp_group, int8)
 
     def encoder_forward(self, x: torch.Tensor, key_bias: Optional[torch.Tensor] = None,
-                        int8: bool = False) -> torch.Tensor:
-        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias, int8)
+                        int8: bool = False, seq_group=None) -> torch.Tensor:
+        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias, int8,
+                                         seq_group)
         return self._mlp(x, int8)
 
     def decoder_forward(self, x: torch.Tensor, xa: torch.Tensor,
@@ -323,16 +383,44 @@ class AudioEncoder(nn.Module):
         x = x.transpose(1, 2)
         return x + self.positional_embedding[: x.shape[1]].to(dtype)
 
-    def forward(self, mel: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, remat: bool = False,
+                sequence_sharding=None) -> torch.Tensor:
         """mel f32[B, n_mels, 3000] -> audio features [B, 1500, D] in the
-        compute dtype. ``remat`` checkpoints each block."""
+        compute dtype. ``remat`` checkpoints each block.
+
+        ``sequence_sharding`` (``parallel.mesh.sequence_sharding``'s group
+        of m ranks) runs the sequence-parallel encode: the stem runs
+        replicated, each rank keeps its T / m frames through the blocks
+        (attention by the Ulysses all-to-all, which needs T and the heads
+        divisible by m; the one-pass key-bias route is off, as in JAX), and
+        the features are gathered back to every rank. An inference path:
+        no gradient is summed over the group, so it refuses autograd."""
         x = self._stem(mel)
         key_bias = None
-        if self.cfg.onepass_encoder:
+        seq = sequence_sharding
+        if seq is not None:
+            x = self._sequence_shard(x, seq)
+        elif self.cfg.onepass_encoder:
             key_bias = torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x = _run_block(block.encoder_forward, remat, x, key_bias, self.cfg.int8_encoder)
-        return _layer_norm(self.ln_post, x)
+            x = _run_block(block.encoder_forward, remat, x, key_bias, self.cfg.int8_encoder,
+                           seq)
+        x = _layer_norm(self.ln_post, x)
+        return x if seq is None else gather_dim(x, 1, seq)
+
+    def _sequence_shard(self, x: torch.Tensor, group) -> torch.Tensor:
+        m, r = dist.get_world_size(group), dist.get_rank(group)
+        t, heads = x.shape[1], self.cfg.n_audio_head
+        if t % m or heads % m:
+            raise ValueError(f"the sequence-parallel encode needs the frames ({t}) and the "
+                             f"heads ({heads}) divisible by the group's {m} ranks")
+        if any(block.attn.group is not None for block in self.blocks):
+            raise ValueError("the sequence-parallel encode takes a replicated encoder, "
+                             "not a tensor-parallel one")
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            raise ValueError("the sequence-parallel encode is an inference path; run it "
+                             "under torch.no_grad()")
+        return x[:, r * (t // m):(r + 1) * (t // m)]
 
 
 class TextDecoder(nn.Module):
@@ -351,6 +439,33 @@ class TextDecoder(nn.Module):
             for _ in range(cfg.n_text_layer))
         self.ln = nn.LayerNorm(d)
         self.compute_dtype = cfg.compute_dtype
+        # vocab-sharded by parallel.mesh: this rank holds the embedding rows
+        # [vocab_start, vocab_start + rows) and sums lookups over the group
+        self.vocab_group = None
+        self.vocab_start = 0
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embedding rows f32[..., D] of int ``tokens``; vocab-sharded,
+        the lookup is masked to this rank's rows, then summed over the
+        group (exact: one row and zeros)."""
+        w = self.token_embedding.weight
+        tokens = tokens.long()
+        if self.vocab_group is None:
+            return w[tokens]
+        local = tokens - self.vocab_start
+        mine = (local >= 0) & (local < w.shape[0])
+        rows = w[local.clamp(0, w.shape[0] - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=w.dtype, device=w.device))
+        return reduce_from_model(rows, self.vocab_group)
+
+    def unembed(self, h: torch.Tensor) -> torch.Tensor:
+        """The tied float32 unembedding, h [..., D] -> logits f32[...,
+        n_vocab]; vocab-sharded, each rank's columns are gathered so that
+        beam selection, the timestamp rules and the transcript CE see the
+        whole vocabulary."""
+        h = copy_to_model(h.to(torch.float32), self.vocab_group)
+        logits = h @ self.token_embedding.weight.to(torch.float32).T
+        return gather_dim(logits, -1, self.vocab_group)
 
     def forward(self, tokens: torch.Tensor, audio_features: torch.Tensor,
                 remat: bool = False) -> torch.Tensor:
@@ -360,13 +475,11 @@ class TextDecoder(nn.Module):
         dtype = self.compute_dtype
         xa = audio_features.to(dtype)
         s = tokens.shape[1]
-        x = (self.token_embedding.weight[tokens.long()].to(dtype)
-             + self.positional_embedding[:s].to(dtype)[None])
+        x = self.embed(tokens).to(dtype) + self.positional_embedding[:s].to(dtype)[None]
         mask = _causal_mask(s, dtype, x.device)
         for block in self.blocks:
             x = _run_block(block.decoder_forward, remat, x, xa, mask)
-        x = _layer_norm(self.ln, x)
-        return x.float() @ self.token_embedding.weight.float().T
+        return self.unembed(_layer_norm(self.ln, x))
 
 
 class Whisper(nn.Module):
@@ -376,13 +489,61 @@ class Whisper(nn.Module):
         self.encoder = AudioEncoder(cfg)
         self.decoder = TextDecoder(cfg)
 
-    def embed_audio(self, mel: torch.Tensor, remat: bool = False) -> torch.Tensor:
-        return self.encoder(mel, remat=remat)
+    def embed_audio(self, mel: torch.Tensor, remat: bool = False,
+                    sequence_sharding=None) -> torch.Tensor:
+        return self.encoder(mel, remat=remat, sequence_sharding=sequence_sharding)
 
     def decoder_logits(self, tokens: torch.Tensor, audio_features: torch.Tensor,
                        remat: bool = False) -> torch.Tensor:
         """The reference's ``whisper_model.logits(tokens, audio_features)``."""
         return self.decoder(tokens, audio_features, remat=remat)
+
+
+def encode_audio(whisper: Whisper, mel: torch.Tensor, remat: bool = False,
+                 sequence_sharding=None) -> torch.Tensor:
+    """mel f32[B, n_mels, 3000] -> audio features [B, 1500, D] (JAX
+    ``encode_audio``; ``sequence_sharding`` as :meth:`AudioEncoder.forward`)."""
+    return whisper.embed_audio(mel, remat=remat, sequence_sharding=sequence_sharding)
+
+
+def decoder_logits(whisper: Whisper, tokens: torch.Tensor, audio_features: torch.Tensor,
+                   remat: bool = False) -> torch.Tensor:
+    """Teacher-forced logits f32[B, S, n_vocab] (JAX ``decoder_logits``)."""
+    return whisper.decoder_logits(tokens, audio_features, remat=remat)
+
+
+@torch.no_grad()
+def init_whisper_weights(whisper: Whisper, generator: torch.Generator) -> Whisper:
+    """Random init of a Whisper module in place, with the JAX package's
+    distributions drawn from ``generator`` (on the parameters' device):
+    linear and conv weights U(+-1/sqrt(fan_in)) with zero biases, LayerNorm
+    ones / zeros, token embedding N(0, 0.02), decoder positions zero."""
+    for name, p in whisper.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("token_embedding.weight"):
+            p.normal_(0.0, 0.02, generator=generator)
+        elif name.endswith("decoder.positional_embedding"):
+            p.zero_()
+        elif "_ln." in name or name.split(".")[-2] in ("ln_post", "ln"):
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:  # linear [out, in] or conv [out, in, k]
+            fan_in = p.shape[1] * (p.shape[2] if p.dim() == 3 else 1)
+            p.uniform_(-1.0 / math.sqrt(fan_in), 1.0 / math.sqrt(fan_in), generator=generator)
+    return whisper
+
+
+def init_whisper_params(cfg: WhisperConfig, generator: torch.Generator,
+                        device=None) -> Whisper:
+    """What stands for JAX's ``init_whisper_params`` in the module-based
+    port: a :class:`Whisper` (its parameters are the module's, not a
+    returned tree) on ``device``, initialised by :func:`init_whisper_weights`
+    from ``generator``."""
+    with torch.device(device or "cpu"):
+        whisper = Whisper(cfg)
+    whisper.to(device or "cpu")  # the sinusoid buffer is made from numpy, on the CPU
+    return init_whisper_weights(whisper, generator)
 
 
 def bf16_resident(whisper: Whisper) -> Whisper:
@@ -442,17 +603,19 @@ def init_decode_cache(model: Whisper, cfg: WhisperConfig, audio_features: torch.
     beside them: ``cross_k_s`` [B, T, H, 1] (per key vector, over Dh; it
     scales the key's whole logit column) and ``cross_v_s`` [B, 1, H, Dh]
     (per head and channel, over T; it factors out of the weights @ V sum).
+    Under tensor parallelism H is this rank's heads (``attn.n_head``).
     """
     dtype = cfg.compute_dtype
     b = audio_features.shape[0]
     dev = audio_features.device
     xa = audio_features.to(dtype)
-    d_h = cfg.n_text_state // cfg.n_text_head
     cache = {"blocks": [], "step": torch.zeros((), dtype=torch.int64, device=dev),
              "length": torch.zeros((b,), dtype=torch.int64, device=dev)}
     for block in model.decoder.blocks:
-        ck = _split_heads(_linear(block.cross_attn.key, xa), cfg.n_text_head)
-        cv = _split_heads(_linear(block.cross_attn.value, xa), cfg.n_text_head)
+        n_head = block.attn.n_head
+        d_h = block.attn.query.weight.shape[0] // n_head
+        ck = _split_heads(_linear(block.cross_attn.key, xa), block.cross_attn.n_head)
+        cv = _split_heads(_linear(block.cross_attn.value, xa), block.cross_attn.n_head)
         extra = {}
         if cfg.int8_cross_kv:
             ck, ck_s = _quantize_int8(ck, -1)
@@ -462,18 +625,17 @@ def init_decode_cache(model: Whisper, cfg: WhisperConfig, audio_features: torch.
             **extra,
             "cross_k": ck,
             "cross_v": cv,
-            "prompt_k": torch.zeros((b, prompt_len, cfg.n_text_head, d_h), dtype=dtype, device=dev),
-            "prompt_v": torch.zeros((b, prompt_len, cfg.n_text_head, d_h), dtype=dtype, device=dev),
-            "gen_k": torch.zeros((b * beam_size, max_new_tokens, cfg.n_text_head, d_h),
+            "prompt_k": torch.zeros((b, prompt_len, n_head, d_h), dtype=dtype, device=dev),
+            "prompt_v": torch.zeros((b, prompt_len, n_head, d_h), dtype=dtype, device=dev),
+            "gen_k": torch.zeros((b * beam_size, max_new_tokens, n_head, d_h),
                                  dtype=dtype, device=dev),
-            "gen_v": torch.zeros((b * beam_size, max_new_tokens, cfg.n_text_head, d_h),
+            "gen_v": torch.zeros((b * beam_size, max_new_tokens, n_head, d_h),
                                  dtype=dtype, device=dev),
         })
     return cache
 
 
-def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, bc: Dict,
-                             n_head: int) -> torch.Tensor:
+def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, bc: Dict) -> torch.Tensor:
     """Cross-attention of x [B*g, S, D] (post-LN) to a cache block's
     precomputed K/V [B, T, H, Dh], where g query rows (beams) share each
     audio row.
@@ -486,11 +648,12 @@ def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, bc: Dict,
     values (:func:`_int_einsum`), equal to JAX's int32 products, so the cache
     holds half the bytes but each step reads them widened to float32."""
     ck, cv = bc["cross_k"], bc["cross_v"]
-    bg, s, d = x.shape
+    bg, s, _ = x.shape
     b = ck.shape[0]
     g = bg // b
-    scale = (d // n_head) ** -0.25
-    q = _split_heads(_linear(p.query, x), n_head).reshape(b, g, s, n_head, d // n_head)
+    q = _split_heads(_linear(p.query, x), p.n_head)
+    scale = q.shape[-1] ** -0.25
+    q = q.reshape(b, g, s, p.n_head, q.shape[-1])
     if "cross_k_s" in bc:
         qq, qs = _quantize_int8(q, -1)                                # qs [b, g, s, h, 1]
         logits = _int_einsum("bgshd,bthd->bgsht", qq, ck)
@@ -503,11 +666,7 @@ def _grouped_cross_attention(p: MultiHeadAttention, x: torch.Tensor, bc: Dict,
         logits = torch.einsum("bgshd,bthd->bgsht", q * scale, ck * scale)
         w = torch.softmax(logits.to(torch.float32), -1).to(x.dtype)
         out = torch.einsum("bgsht,bthd->bgshd", w, cv)
-    return _linear(p.out, out.reshape(bg, s, d))
-
-
-def _unembed(dec: TextDecoder, h: torch.Tensor) -> torch.Tensor:
-    return h.to(torch.float32) @ dec.token_embedding.weight.to(torch.float32).T
+    return _row_linear(p.out, out.reshape(bg, s, -1), p.group)
 
 
 @torch.no_grad()
@@ -525,27 +684,27 @@ def prime_decode_cache(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor,
     """
     dec = model.decoder
     dtype = cfg.compute_dtype
-    n_head = cfg.n_text_head
     b, p = tokens.shape
     dev = tokens.device
     length = _per_sample(length, p, b, dev)
     aux_index = _per_sample(aux_index, 0, b, dev)
 
-    x = dec.token_embedding.weight[tokens.long()].to(dtype)
+    x = dec.embed(tokens).to(dtype)
     x = x + dec.positional_embedding[:p].to(dtype)[None]
     mask = _causal_mask(p, dtype, dev)
-    scale = (cfg.n_text_state // n_head) ** -0.25
     for block, bc in zip(dec.blocks, cache["blocks"]):
+        n_head = block.attn.n_head
         h = _layer_norm(block.attn_ln, x)
         q = _split_heads(_linear(block.attn.query, h), n_head)
         k = _split_heads(_linear(block.attn.key, h), n_head)
         v = _split_heads(_linear(block.attn.value, h), n_head)
+        scale = q.shape[-1] ** -0.25
         att = torch.einsum("bqhd,bkhd->bhqk", q * scale, k * scale) + mask
         w = torch.softmax(att.to(torch.float32), -1).to(dtype)
         attn_out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        x = x + _linear(block.attn.out, attn_out.reshape(x.shape))
+        x = x + _row_linear(block.attn.out, attn_out.reshape(b, p, -1), block.attn.group)
         x = x + _grouped_cross_attention(block.cross_attn, _layer_norm(block.cross_attn_ln, x),
-                                         bc, n_head)
+                                         bc)
         x = block._mlp(x)
         bc["prompt_k"].copy_(k)
         bc["prompt_v"].copy_(v)
@@ -556,7 +715,7 @@ def prime_decode_cache(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor,
     aux_h = x[rows, aux_index.clamp(0, p - 1)]
     cache["step"].zero_()
     cache["length"] = length
-    return _unembed(dec, last_h), _unembed(dec, aux_h), cache
+    return dec.unembed(last_h), dec.unembed(aux_h), cache
 
 
 @torch.no_grad()
@@ -575,7 +734,6 @@ def decode_step(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor, cache:
     """
     dec = model.decoder
     dtype = cfg.compute_dtype
-    n_head = cfg.n_text_head
     step, length = cache["step"], cache["length"]
     r, b = tokens.shape[0], length.shape[0]
     g = r // b
@@ -586,15 +744,16 @@ def decode_step(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor, cache:
 
     pe = dec.positional_embedding.to(dtype)
     pos = (length.repeat_interleave(g) + step).clamp(0, pe.shape[0] - 1)
-    x = dec.token_embedding.weight[tokens.long()].to(dtype) + pe[pos][:, None]
+    x = dec.embed(tokens).to(dtype) + pe[pos][:, None]
 
     mask_p = torch.where(torch.arange(p, device=dev)[None] < length[:, None], 0.0, neg).to(dtype)
     mask_g = torch.where(torch.arange(g_max, device=dev) <= step, 0.0, neg).to(dtype)
     slot = step.clamp(max=g_max - 1).reshape(1)
-    scale = (cfg.n_text_state // n_head) ** -0.25
     for block, bc in zip(dec.blocks, cache["blocks"]):
+        n_head = block.attn.n_head
         h = _layer_norm(block.attn_ln, x)
         q = _split_heads(_linear(block.attn.query, h), n_head)
+        scale = q.shape[-1] ** -0.25
         bc["gen_k"].index_copy_(1, slot, _split_heads(_linear(block.attn.key, h), n_head))
         bc["gen_v"].index_copy_(1, slot, _split_heads(_linear(block.attn.value, h), n_head))
 
@@ -608,11 +767,11 @@ def decode_step(model: Whisper, cfg: WhisperConfig, tokens: torch.Tensor, cache:
                              bc["prompt_v"])
         out_g = torch.einsum("rhk,rkhd->rhd", w[..., p:], bc["gen_v"])
         attn_out = out_p.reshape(r, n_head, -1) + out_g                     # [R, H, Dh]
-        x = x + _linear(block.attn.out, attn_out.reshape(r, 1, -1))
+        x = x + _row_linear(block.attn.out, attn_out.reshape(r, 1, -1), block.attn.group)
         x = x + _grouped_cross_attention(block.cross_attn, _layer_norm(block.cross_attn_ln, x),
-                                         bc, n_head)
+                                         bc)
         x = block._mlp(x)
 
-    logits = _unembed(dec, _layer_norm(dec.ln, x))
+    logits = dec.unembed(_layer_norm(dec.ln, x))
     step.add_(1)
     return logits[:, 0], cache

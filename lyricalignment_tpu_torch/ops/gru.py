@@ -19,7 +19,7 @@ are zero here (the JAX scan leaves the held state there); nothing reads them.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -46,23 +46,34 @@ def _layer(rnn: nn.GRU, i: int, seq):
     return functional_call(layer, params, (seq,))[0]
 
 
-def inverted_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def inverted_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Keep each element with probability 1 - rate and scale it by
     1 / (1 - rate) (``jax.random.bernoulli`` + ``where`` in the JAX scan);
-    the mask comes from ``generator``, which lives on ``x``'s device."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    the mask comes from ``generator``, which lives on ``x``'s device.
+    ``rows`` (start, total): x holds rows [start, start + B) of a batch of
+    ``total`` (a data rank's shard); the whole batch's mask is drawn and
+    these rows taken, so the shards together draw the unsharded mask."""
+    shape = x.shape if rows is None else (rows[1],) + tuple(x.shape[1:])
+    draw = torch.rand(shape, generator=generator, device=x.device)
+    if rows is not None:
+        draw = draw[rows[0]:rows[0] + x.shape[0]]
+    keep = draw < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def bigru_apply(rnn: nn.GRU, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                dropout: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x [B, T, In] -> [B, T, H * directions] (``rnn`` is batch-first).
     Dropout applies to the outputs of every layer but the last, and only
-    when a ``generator`` is given."""
+    when a ``generator`` is given; ``dropout_rows`` as
+    :func:`inverted_dropout`'s ``rows`` (unpacked sequences only)."""
     t = x.shape[1]
     seq = x
     if lengths is not None:
+        if dropout_rows is not None:
+            raise ValueError("dropout_rows needs unpacked sequences (no lengths)")
         lens = lengths.detach().to("cpu", torch.int64).clamp(1, t)
         seq = pack_padded_sequence(x, lens, batch_first=True, enforce_sorted=False)
     for i in range(rnn.num_layers):
@@ -71,7 +82,7 @@ def bigru_apply(rnn: nn.GRU, x: torch.Tensor, lengths: Optional[torch.Tensor] = 
             if isinstance(seq, PackedSequence):
                 seq = seq._replace(data=inverted_dropout(seq.data, dropout, generator))
             else:
-                seq = inverted_dropout(seq, dropout, generator)
+                seq = inverted_dropout(seq, dropout, generator, dropout_rows)
     if lengths is None:
         return seq
     return pad_packed_sequence(seq, batch_first=True, total_length=t)[0]

@@ -217,6 +217,13 @@ def log_mel(audio: torch.Tensor, per_sample_max: bool = False,
     return log_spec.reshape(*lead, n_mels, log_spec.shape[-1])
 
 
+def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = N_MELS,
+                        per_sample_max: bool = False) -> torch.Tensor:
+    """:func:`log_mel` under the JAX package's name and argument order
+    (``lyricalignment_tpu/ops/mel.py:log_mel_spectrogram``)."""
+    return log_mel(audio, per_sample_max=per_sample_max, n_mels=n_mels)
+
+
 def pad_or_trim(array: torch.Tensor, length: int, axis: int = -1) -> torch.Tensor:
     """Pad with zeros or trim ``array`` to ``length`` along ``axis`` (whisper
     ``pad_or_trim``)."""

@@ -41,6 +41,15 @@ class PronunciationTable:
     pinyin_reverse: Dict[str, List[int]]   # syllable string -> token ids
     token_to_class: np.ndarray             # int32[vocab_size] dense gather table
 
+    @property
+    def vocab_size(self) -> int:
+        return len(self.token_pinyin)
+
+    @property
+    def num_classes(self) -> int:
+        # +1 for the never-emitted class 0 (silence / CTC blank)
+        return max(self.pinyin_to_class.values()) + 1
+
     def map_tokens(self, token_ids: np.ndarray) -> np.ndarray:
         """Vectorised token-id -> syllable-class-id conversion; IGNORE_ID
         entries pass through unchanged."""
@@ -49,6 +58,12 @@ class PronunciationTable:
         safe = np.where(valid, token_ids, 0)
         mapped = self.token_to_class[safe]
         return np.where(valid, mapped, IGNORE_ID).astype(np.int32)
+
+    def classes_of_text(self, text: str, char_to_token: Dict[str, int]) -> np.ndarray:
+        """Map a string to syllable class ids given a char -> token-id vocab
+        (characters outside it take token 0)."""
+        ids = np.array([char_to_token.get(ch, 0) for ch in text], dtype=np.int32)
+        return self.map_tokens(ids)
 
 
 def load_pronunciation_table(path: str = DEFAULT_TABLE_PATH) -> PronunciationTable:

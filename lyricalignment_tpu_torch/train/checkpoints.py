@@ -10,6 +10,13 @@ is written as the reference writes it, ``{name}_model.pt`` =
 reference read), beside ``{name}_state.pt`` with the optimizer state and the
 step, so ``--resume`` continues the learning-rate schedule where it left
 off (the reference restarts it).
+
+Under a mesh (``parallel.mesh``) the full state dict and the full Adam
+moments are gathered from the tensor-parallel shards and rank 0 alone
+writes them, so a model dir written under any mesh loads unsharded with
+``strict=True`` (JAX's checkpoints are portable between meshes,
+``train/checkpoints.py:34-36``); restoring onto a sharded model cuts each
+full tensor to the rank's shard.
 """
 
 from __future__ import annotations
@@ -20,6 +27,12 @@ from typing import Dict
 
 import torch
 
+from lyricalignment_tpu_torch.parallel.mesh import (
+    gather_state_dict,
+    gather_tensors,
+    is_primary,
+    shard_tensors,
+)
 from lyricalignment_tpu_torch.train.schedule import OptState
 
 
@@ -34,8 +47,12 @@ def load_json(path: str) -> Dict:
 
 
 def export_reference_pt(model: torch.nn.Module, path: str) -> None:
-    """Write the model's state dict (reference names, CPU tensors)."""
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+    """Write the model's full state dict (reference names, CPU tensors);
+    a sharded model's is gathered over its model group (every rank takes
+    part) and written by rank 0."""
+    sd = {k: v.detach().cpu() for k, v in gather_state_dict(model).items()}
+    if is_primary():
+        torch.save(sd, path)
 
 
 def _prefix(path: str) -> str:
@@ -49,20 +66,26 @@ def save_train_state(path: str, state) -> None:
     ``dir/{name}_model``."""
     prefix = _prefix(path)
     export_reference_pt(state.model, prefix + "_model.pt")
-    opt = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
+    opt = {k: ({n: t.cpu() for n, t in gather_tensors(state.model, v).items()}
+               if isinstance(v, dict) else v)
            for k, v in state.opt_state.state_dict().items()}
-    torch.save({"opt_state": opt, "step": state.step}, prefix + "_state.pt")
+    if is_primary():
+        torch.save({"opt_state": opt, "step": state.step}, prefix + "_state.pt")
 
 
 def restore_train_state(path: str, state) -> None:
     """Load weights, optimizer state and step written by
-    :func:`save_train_state` into ``state`` (in place)."""
+    :func:`save_train_state` into ``state`` (in place); a sharded model
+    takes its rank's slices of the full tensors."""
     prefix = _prefix(path)
-    device = next(state.model.parameters()).device
-    state.model.load_state_dict(
-        torch.load(prefix + "_model.pt", map_location="cpu", weights_only=True), strict=True)
+    model = state.model
+    device = next(model.parameters()).device
+    full = torch.load(prefix + "_model.pt", map_location="cpu", weights_only=True)
+    model.load_state_dict(shard_tensors(model, full), strict=True)
     saved = torch.load(prefix + "_state.pt", map_location="cpu", weights_only=True)
-    state.opt_state = OptState.from_state_dict(saved["opt_state"], device=device)
+    opt = {k: shard_tensors(model, v) if isinstance(v, dict) else v
+           for k, v in saved["opt_state"].items()}
+    state.opt_state = OptState.from_state_dict(opt, device=device)
     state.step = int(saved["step"])
 
 

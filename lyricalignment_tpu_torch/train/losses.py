@@ -17,6 +17,13 @@ sub-batch and takes each loss as a mean within its sub-batch
 per-sample mask: each ``*_grouped`` function reproduces one group mean, and
 an empty group contributes 0.
 
+Under data parallelism each rank holds some rows of the micro-batch, and a
+group mean is a ratio of sums over the whole micro-batch: the ``group``
+argument (the data process group) makes each rank divide its own sum by
+the *global* count, all-reduced over the group, so that the ranks' losses
+(and gradients) sum to the unsharded ones. A rank's local mean averaged
+over ranks would differ whenever the groups split unevenly.
+
 The fused classifier->loss variants (`losses.py:138-292`) take the head's
 pre-classifier hidden and its fc instead of the [B, T, C] logits: the class
 normaliser is the streaming row LSE (``ops.viterbi.row_lse``, with its
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -40,8 +48,12 @@ IGNORE_ID = -100
 LOG_EPSILON = -1.0e5
 
 
-def _group_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """total / count, or 0 for an empty group."""
+def _group_mean(total: torch.Tensor, count: torch.Tensor, group=None) -> torch.Tensor:
+    """total / count, or 0 for an empty group; ``group``: count summed over
+    the data group first (see the module docstring)."""
+    if group is not None:
+        count = count.clone()
+        dist.all_reduce(count, group=group)
     return torch.where(count > 0, total / count.clamp(min=1), torch.zeros_like(total))
 
 
@@ -57,7 +69,7 @@ def _reconcile_label_length(frame_labels: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def masked_ce_grouped(logits: torch.Tensor, labels: torch.Tensor,
-                      sample_mask: torch.Tensor) -> torch.Tensor:
+                      sample_mask: torch.Tensor, group=None) -> torch.Tensor:
     """CE mean over valid positions (label != -100) of the selected samples
     (= sub-batch ``F.cross_entropy`` with ignore_index). logits f32[B, ...,
     C], labels int[B, ...], sample_mask bool[B]."""
@@ -67,7 +79,7 @@ def masked_ce_grouped(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    return _group_mean(total, valid.sum())
+    return _group_mean(total, valid.sum(), group)
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -78,7 +90,7 @@ def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def frame_ce_loss_grouped(logits: torch.Tensor, frame_labels: torch.Tensor,
                           sample_mask: torch.Tensor, with_silence_head: bool = False,
-                          vocab_size: int = 21128) -> torch.Tensor:
+                          vocab_size: int = 21128, group=None) -> torch.Tensor:
     """Frame-wise alignment CE of the selected samples.
 
     Plain mode: CE over all classes incl. silence = class 0, ignoring -100.
@@ -89,18 +101,19 @@ def frame_ce_loss_grouped(logits: torch.Tensor, frame_labels: torch.Tensor,
     """
     frame_labels = _reconcile_label_length(frame_labels, logits.shape[1])
     if not with_silence_head:
-        return masked_ce_grouped(logits, frame_labels, sample_mask)
+        return masked_ce_grouped(logits, frame_labels, sample_mask, group)
 
     valid = frame_labels != IGNORE_ID
     shifted = torch.where(valid, frame_labels - 1, torch.full_like(frame_labels, IGNORE_ID))
-    word_loss = masked_ce_grouped(logits[:, :, 1:vocab_size], shifted, sample_mask)
+    word_loss = masked_ce_grouped(logits[:, :, 1:vocab_size], shifted, sample_mask, group)
 
     silence_label = (~valid).float()
     sil_logit = logits[:, :, vocab_size].float()
     per_elem = F.binary_cross_entropy_with_logits(sil_logit, silence_label, reduction="none")
     m = sample_mask[:, None]
     count = sample_mask.sum() * sil_logit.shape[1]
-    sil_loss = _group_mean(torch.where(m, per_elem, torch.zeros_like(per_elem)).sum(), count)
+    sil_loss = _group_mean(torch.where(m, per_elem, torch.zeros_like(per_elem)).sum(), count,
+                           group)
     return word_loss + sil_loss
 
 
@@ -202,10 +215,11 @@ def ctc_per_example(logits: torch.Tensor, labels: torch.Tensor,
     return per_example / target_len.clamp(min=1)
 
 
-def group_mean(per_example: torch.Tensor, sample_mask: torch.Tensor) -> torch.Tensor:
+def group_mean(per_example: torch.Tensor, sample_mask: torch.Tensor,
+               group=None) -> torch.Tensor:
     """Mean of the selected samples' values, 0 for an empty group."""
     total = torch.where(sample_mask, per_example, torch.zeros_like(per_example)).sum()
-    return _group_mean(total, sample_mask.sum())
+    return _group_mean(total, sample_mask.sum(), group)
 
 
 def ctc_loss_grouped(logits: torch.Tensor, labels: torch.Tensor, sample_mask: torch.Tensor,
@@ -233,7 +247,7 @@ def _frame_logits(h: torch.Tensor, fc: nn.Linear, cols: torch.Tensor) -> torch.T
 
 def frame_ce_loss_grouped_fused(h: torch.Tensor, fc: nn.Linear, frame_labels: torch.Tensor,
                                 sample_mask: torch.Tensor, with_silence_head: bool = False,
-                                vocab_size: int = 21128) -> torch.Tensor:
+                                vocab_size: int = 21128, group=None) -> torch.Tensor:
     """``frame_ce_loss_grouped(fc(h), ...)`` without the logits. h f32[B, T,
     F] (the head's pre-classifier hidden), fc the head's Linear [C, F]."""
     h = h.contiguous()
@@ -251,7 +265,7 @@ def frame_ce_loss_grouped_fused(h: torch.Tensor, fc: nn.Linear, frame_labels: to
         lse = class_lse(h, w[1:vocab_size], b[1:vocab_size])
     nll = lse - _frame_logits(h, fc, safe)
     m = valid & sample_mask[:, None]
-    word_loss = _group_mean(torch.where(m, nll, torch.zeros_like(nll)).sum(), m.sum())
+    word_loss = _group_mean(torch.where(m, nll, torch.zeros_like(nll)).sum(), m.sum(), group)
     if not with_silence_head:
         return word_loss
 
@@ -260,7 +274,8 @@ def frame_ce_loss_grouped_fused(h: torch.Tensor, fc: nn.Linear, frame_labels: to
     per_elem = F.binary_cross_entropy_with_logits(sil_logit, silence_label, reduction="none")
     sm = sample_mask[:, None]
     count = sample_mask.sum() * sil_logit.shape[1]
-    sil_loss = _group_mean(torch.where(sm, per_elem, torch.zeros_like(per_elem)).sum(), count)
+    sil_loss = _group_mean(torch.where(sm, per_elem, torch.zeros_like(per_elem)).sum(), count,
+                           group)
     return word_loss + sil_loss
 
 

@@ -24,16 +24,20 @@ step on tensors, where ``torch.optim.AdamW`` + ``clip_grad_norm_`` +
 * the frozen group holds no state and gets no update.
 
 The arithmetic runs in float32 with ``torch._foreach_*`` ops, one list per
-group.
+group. Under tensor parallelism (``parallel.mesh``) each rank updates its
+own shard; the clip's norm is the full gradient's: the sharded parameters'
+squared sums are all-reduced over the model group and the replicated ones
+(LayerNorms, row-parallel biases, the GRU head) counted once.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -94,13 +98,18 @@ class AdamWChain:
     def __init__(self, labels: Dict[str, str], lrs: Dict[str, float],
                  weight_decay: float = 1e-5, warmup_steps: int = 200,
                  total_steps: int = 2000, max_grad_norm: float = 1.0,
-                 mu_dtype: Optional[torch.dtype] = None):
+                 mu_dtype: Optional[torch.dtype] = None, norm_group=None,
+                 sharded: Iterable[str] = ()):
         self.labels = labels
         self.schedules = {g: linear_warmup_decay(lr, warmup_steps, total_steps)
                           for g, lr in lrs.items()}
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.mu_dtype = mu_dtype
+        # tensor parallelism: the model group and the names of the
+        # parameters sharded over it
+        self.norm_group = norm_group
+        self.sharded = frozenset(sharded)
 
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
         state = OptState()
@@ -110,20 +119,30 @@ class AdamWChain:
                 state.nu[name] = torch.zeros_like(p)
         return state
 
-    @staticmethod
-    def global_norm(grads) -> Optional[torch.Tensor]:
-        """sqrt of the sum of squares of every gradient (None: no gradient)."""
-        present = [g for g in grads if g is not None]
+    def global_norm(self, grads: Dict[str, Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
+        """sqrt of the sum of squares of every gradient (None: no gradient),
+        of the full gradient under tensor parallelism."""
+        present = {n: g for n, g in grads.items() if g is not None}
         if not present:
             return None
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(present)))
+        if self.norm_group is None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(present.values()))))
+        squares = []
+        for shard in (True, False):
+            gs = [g for n, g in present.items() if (n in self.sharded) == shard]
+            sq = (torch.stack(torch._foreach_norm(gs)).square().sum() if gs
+                  else torch.zeros((), device=next(iter(present.values())).device))
+            if shard:
+                dist.all_reduce(sq, group=self.norm_group)
+            squares.append(sq)
+        return torch.sqrt(squares[0] + squares[1])
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, Optional[torch.Tensor]], state: OptState) -> OptState:
         """Apply one update to ``params`` in place (float32 parameters and
         gradients); returns the state, its moments updated in place."""
-        norm = self.global_norm(grads.values())
+        norm = self.global_norm(grads)
         count = state.count + 1
         f32 = np.float32
         bc1 = float(f32(1) - f32(B1) ** f32(count))
@@ -167,8 +186,9 @@ def make_optimizer(labels: Dict[str, str], head_lr: float = 5e-3,
                    backbone_lr: float = 5e-6, weight_decay: float = 1e-5,
                    warmup_steps: int = 200, total_steps: int = 2000,
                    max_grad_norm: float = 1.0,
-                   mu_dtype: Optional[torch.dtype] = None) -> AdamWChain:
+                   mu_dtype: Optional[torch.dtype] = None, norm_group=None,
+                   sharded: Iterable[str] = ()) -> AdamWChain:
     return AdamWChain(labels, {"head": head_lr, "backbone": backbone_lr},
                       weight_decay=weight_decay, warmup_steps=warmup_steps,
                       total_steps=total_steps, max_grad_norm=max_grad_norm,
-                      mu_dtype=mu_dtype)
+                      mu_dtype=mu_dtype, norm_group=norm_group, sharded=sharded)

@@ -12,6 +12,16 @@ package's one jitted step and its ``lax.scan`` over micro-batches become a
 Python loop, and the parameters live in the model and update in place.
 Each micro-batch draws the align head's dropout from its own
 ``torch.Generator``, seeded from (seed, step, micro-batch index).
+
+Under a ``("data", "model")`` mesh (``parallel.mesh``; JAX shards the
+stacked batch ``P(None, "data")``) every rank holds the same global stacked
+batch and takes its data rank's rows of each micro-batch. The loss group
+means divide each rank's sums by the global counts (``train/losses.py``),
+each rank draws the global micro-batch's dropout mask and takes its rows,
+and the accumulated gradients are summed over the data group, so the
+meshed step equals the unsharded one. Tensor parallelism lives in the
+sharded model itself (``models/whisper.py``) and in the clip's norm
+(``train/schedule.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +31,10 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lyricalignment_tpu_torch.models.align_model import AlignModel, forward_from_audio
+from lyricalignment_tpu_torch.parallel.mesh import DATA_AXIS, batch_sharding, model_group
 from lyricalignment_tpu_torch.train.losses import (
     ctc_frames_needed,
     ctc_per_example,
@@ -81,11 +93,14 @@ class TrainState:
 
 
 def init_train_state(model: AlignModel, tcfg: TrainConfig) -> Tuple[TrainState, AdamWChain]:
+    """Optimizer state of ``model``'s parameters (its rank's shards, once
+    ``parallel.mesh.shard_align_params`` has cut it) and the AdamW chain."""
     labels = param_group_labels(model.named_parameters(), freeze_encoder=tcfg.freeze_encoder)
     tx = make_optimizer(labels, head_lr=tcfg.head_lr, backbone_lr=tcfg.backbone_lr,
                         weight_decay=tcfg.weight_decay, warmup_steps=tcfg.warmup_steps,
                         total_steps=tcfg.total_steps, max_grad_norm=tcfg.max_grad_norm,
-                        mu_dtype=tcfg.adam_mu_dtype)
+                        mu_dtype=tcfg.adam_mu_dtype, norm_group=model_group(model),
+                        sharded=getattr(model, "tp_specs", {}))
     return TrainState(model, tx.init(dict(model.named_parameters()))), tx
 
 
@@ -104,21 +119,28 @@ def to_device(batch: Dict, device) -> Dict:
 
 
 def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
-                     generator: Optional[torch.Generator]
+                     generator: Optional[torch.Generator], data_group=None,
+                     dropout_rows: Optional[Tuple[int, int]] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss composition of the reference's ``train_step`` body
     (`train_multitask.py:250-325`) on one batch of tensors on the model's
     device, as ``to_device`` gives it. ``generator`` draws the head's
     dropout (None: no dropout). Under ``tcfg.fused_losses`` the align losses
     read the head's pre-classifier hidden and its fc; the CTC per-sample
-    losses are computed once and group-meaned twice, in both modes."""
+    losses are computed once and group-meaned twice, in both modes.
+
+    ``data_group``: the batch is a data rank's rows of ``dropout_rows``
+    (start, total); each loss is this rank's share of the global group
+    mean (its sum over the global count), so the ranks' losses sum to the
+    unsharded ones."""
     mcfg = model.cfg
     fused = tcfg.fused_losses and mcfg.train_alignment
     align_out, trans_logits = forward_from_audio(
         model, batch["audio"],
         y_in=batch["decoder_input"] if mcfg.train_transcript else None,
         trim_to_input_length=False, generator=generator, remat=tcfg.remat,
-        align_head_output="hidden" if fused else "logits")
+        align_head_output="hidden" if fused else "logits", dropout_rows=dropout_rows)
+    grp = data_group
 
     align_mask = batch["has_alignment"].bool()
     trans_mask = ~align_mask
@@ -129,11 +151,11 @@ def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
         if fused:
             align_ce = frame_ce_loss_grouped_fused(
                 align_out, fc, batch["frame_labels"], align_mask,
-                with_silence_head=tcfg.use_ctc, vocab_size=tcfg.vocab_size)
+                with_silence_head=tcfg.use_ctc, vocab_size=tcfg.vocab_size, group=grp)
         else:
             align_ce = frame_ce_loss_grouped(align_out, batch["frame_labels"], align_mask,
                                              with_silence_head=tcfg.use_ctc,
-                                             vocab_size=tcfg.vocab_size)
+                                             vocab_size=tcfg.vocab_size, group=grp)
         if tcfg.use_ctc:
             if fused:
                 per_example = ctc_per_example_fused(align_out, fc, batch["ctc_labels"],
@@ -141,15 +163,15 @@ def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
             else:
                 per_example = ctc_per_example(align_out[:, :, : tcfg.vocab_size],
                                               batch["ctc_labels"], batch["ctc_frames_needed"])
-            align_ctc = group_mean(per_example, align_mask)
+            align_ctc = group_mean(per_example, align_mask, grp)
             # the reference also applies CTC to transcript-only samples
             # (`train_multitask.py:312-315`)
-            trans_ctc = group_mean(per_example, trans_mask)
+            trans_ctc = group_mean(per_example, trans_mask, grp)
     if trans_logits is not None:
         # two group means, summed: the reference's separate multitask and
         # transcript F.cross_entropy calls (`:285,308`)
-        trans_ce = (masked_ce_grouped(trans_logits, batch["decoder_output"], align_mask)
-                    + masked_ce_grouped(trans_logits, batch["decoder_output"], trans_mask))
+        trans_ce = (masked_ce_grouped(trans_logits, batch["decoder_output"], align_mask, grp)
+                    + masked_ce_grouped(trans_logits, batch["decoder_output"], trans_mask, grp))
 
     total = align_ce + align_ctc + trans_ce + trans_ctc
     return total, dict(zip(LOSS_KEYS, (total, align_ce, align_ctc, trans_ce, trans_ctc)))
@@ -160,13 +182,18 @@ def micro_seed(seed: int, step: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, step, index]).generate_state(1)[0])
 
 
-def make_train_step(tcfg: TrainConfig, tx: AdamWChain) -> Callable:
+def make_train_step(tcfg: TrainConfig, tx: AdamWChain, mesh=None) -> Callable:
     """The update. ``stacked`` leaves are [accum, B, ...] (numpy or
     tensors); returns (state, mean losses over the micro-batches as 0-d
-    tensors)."""
+    tensors). Under ``mesh`` the stacked batch is the global one: each rank
+    takes its data rank's rows, and the gradients the optimizer gets and
+    the losses returned are summed over the data group (the unsharded
+    step's)."""
     accum = tcfg.accum_grad_steps
     acc_dtype = tcfg.grad_accum_dtype
     explicit = acc_dtype not in (None, torch.float32)
+    data_group = None if mesh is None else mesh.get_group(DATA_AXIS)
+    rows = None if mesh is None else batch_sharding(mesh)
 
     def train_step(state: TrainState, stacked: Dict, seed: int = tcfg.seed):
         model = state.model
@@ -177,9 +204,15 @@ def make_train_step(tcfg: TrainConfig, tx: AdamWChain) -> Callable:
         acc: Dict[str, torch.Tensor] = {}
         sums = {k: torch.zeros((), device=device) for k in LOSS_KEYS}
         for i in range(accum):
-            micro = to_device({k: v[i] for k, v in stacked.items()}, device)
+            micro = {k: v[i] for k, v in stacked.items()}
+            dropout_rows = None
+            if rows is not None:
+                total_rows = len(micro["audio"])
+                dropout_rows = (rows.rows(total_rows).start, total_rows)
+                micro = {k: rows.shard(v) for k, v in micro.items()}
+            micro = to_device(micro, device)
             gen = torch.Generator(device=device).manual_seed(micro_seed(seed, state.step, i))
-            total, losses = multitask_losses(model, tcfg, micro, gen)
+            total, losses = multitask_losses(model, tcfg, micro, gen, data_group, dropout_rows)
             total.backward()
             if explicit:
                 # a + g.astype(acc_dtype), as the JAX scan accumulates
@@ -196,9 +229,17 @@ def make_train_step(tcfg: TrainConfig, tx: AdamWChain) -> Callable:
             grads = {n: None if p.grad is None else p.grad / accum for n, p in params.items()}
         for p in params.values():
             p.grad = None
+        losses = {k: v / accum for k, v in sums.items()}
+        if data_group is not None:
+            for g in grads.values():
+                if g is not None:
+                    dist.all_reduce(g, group=data_group)
+            summed = torch.stack([losses[k] for k in LOSS_KEYS])
+            dist.all_reduce(summed, group=data_group)
+            losses = dict(zip(LOSS_KEYS, summed.unbind()))
         state.opt_state = tx.update(params, grads, state.opt_state)
         state.step += 1
-        return state, {k: v / accum for k, v in sums.items()}
+        return state, losses
 
     return train_step
 
