@@ -120,14 +120,38 @@ NVIDIA GPU (written for the H100, sm_90a):
        for bit), launches as in phases "throughput" and "train" (c);
    (b) two spawned processes sharing the card over gloo, ``--mesh-model 2``:
        whisper-medium alignment with 8 of the 16 heads a rank (each rank
-       launches la_bias_attention 24 times a batch), encoder rel-L2 against
-       the single process 5e-3, onsets and offsets within one frame, and a
-       float32 tiny model's segments at atol 1e-4; fails loudly if the card's
-       compute mode is exclusive-process;
+       launches la_bias_attention 24 times a batch), the encoder's rel-L2 to
+       float32 on the same weights at most 1.1x the single bf16 process's,
+       onsets and offsets within one frame of float32's as often, less 0.01,
+       and a float32 tiny model's segments at atol 1e-4; fails loudly if the
+       card's compute mode is exclusive-process;
    (c) the same two processes, ``--mesh-data 2``: one whisper-tiny train step
        with its align and transcript samples on different ranks, losses rtol
        1e-4 of the single-process GPU step, every training kernel launched on
        each rank.
+
+10. phase "pipe", pipeline parallelism (``parallel/pipeline.py``): two
+   spawned processes, the two stages, share the card over gloo (a send is
+   a broadcast over the pair's group), after the one-process references
+   are computed here:
+   (a) whisper-medium alignment of 16 x 30 s through ``align_records`` with
+       ``--mesh-pipe 2``: 12 of the 24 encoder blocks a rank (half the
+       single process's block bytes), 2 micro-batches of 8, launches a rank
+       1 / 24 / 1 / 1, the encoder and segments bit-equal to one bf16
+       process (else held to float32 as phase "mesh" (b) is), a float32
+       tiny model's segments at atol 1e-4, peak memory beside one
+       process's;
+   (b) a whisper-medium bf16 train step of 2 x 30 s with both halves
+       staged (12 + 12 blocks a rank), 2 micro-batches of 1: losses within
+       1e-3 (rel) of one process's, every training kernel launched (1 / 24
+       / 24 / 24 a rank), step ms and peak memory beside one process's; a
+       float32 tiny model's step with every loss: losses at 1e-5 of one
+       process's; gradients at 1e-5 (rel-L2) and updated parameters at
+       1e-5 (where the gradient is at least 1e-3 of its tensor's largest;
+       elsewhere at most 1 in 1000 entries of a tensor off by more than
+       2e-2 of the rate) of one process that runs the same micro-batches
+       one after another; the gradients' distance to the unsplit process at
+       most 1.1x that process's own, plus 1e-5.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -2713,7 +2737,7 @@ def _within_frame(a, b):
     return sum(abs(u - v) <= 0.02 + 1e-9 for u, v in pairs) / len(pairs)
 
 
-def _train_once(model, tcfg, stacked, mesh=None):
+def _train_once(model, tcfg, stacked, mesh=None, encode_fn=None, decode_fn=None):
     """One make_train_step: (losses, launches, the parameters after)."""
     import torch
 
@@ -2724,7 +2748,7 @@ def _train_once(model, tcfg, stacked, mesh=None):
     dev = next(model.parameters()).device
     _sync(dev)
     kernels.reset_launch_counts()
-    _, losses = make_train_step(tcfg, tx, mesh)(state, stacked, 3)
+    _, losses = make_train_step(tcfg, tx, mesh, encode_fn, decode_fn)(state, stacked, 3)
     _sync(dev)
     return ({k: float(v) for k, v in losses.items()}, dict(kernels.launches),
             {n: p.detach().clone() for n, p in model.named_parameters()})
@@ -2740,19 +2764,13 @@ def phase_mesh_world_of_one(dev, card, tmp):
     the world-of-one mesh (global counts and the gradient all-reduce on
     nccl): equal losses and parameters, bit for bit. Returns the unmeshed
     segments and encoder output, which part (b) is held to."""
-    import numpy as np
     import torch
     import torch.distributed as dist
 
     from lyricalignment_tpu_torch.cli.common import init_distributed
-    from lyricalignment_tpu_torch.models.align_model import (
-        AlignModel,
-        AlignModelConfig,
-        init_weights,
-    )
-    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS, bf16_resident
+    from lyricalignment_tpu_torch.models.align_model import AlignModel
+    from lyricalignment_tpu_torch.models.whisper import bf16_resident
     from lyricalignment_tpu_torch.parallel.mesh import make_mesh, shard_align_params
-    from lyricalignment_tpu_torch.train.trainer import TrainConfig
 
     t0 = time.perf_counter()
     init_distributed(dev.type)
@@ -2802,18 +2820,8 @@ def phase_mesh_world_of_one(dev, card, tmp):
     torch.cuda.empty_cache()
 
     # one bf16 train step at bench_train's micro-batch (2 x 30 s)
-    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
-                               fast_gelu=True)
-    cfg = AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=C_CTC, train_transcript=True)
-    tcfg = TrainConfig(accum_grad_steps=1, use_ctc=True, vocab_size=C_CTC - 1, warmup_steps=0,
-                       total_steps=2000, grad_accum_dtype=torch.bfloat16,
-                       adam_mu_dtype=torch.bfloat16)
-    stacked = _train_batch(np.random.default_rng(0), 1, TRAIN_B, wcfg.n_vocab, 400)
-    stacked["has_alignment"][0, 1] = False
-    with torch.device(dev):
-        model = AlignModel(cfg)
-    model.to(dev)
-    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    model, tcfg, stacked = _medium_train_setup(dev)
+    wcfg = model.cfg.whisper
     weights = {k: v.clone() for k, v in model.state_dict().items()}
     _train_once(model, tcfg, stacked)  # warm-up: first-use allocations
     model.load_state_dict(weights)
@@ -2846,7 +2854,8 @@ def phase_mesh_world_of_one(dev, card, tmp):
 
 
 def _mesh_rank(rank, tmp, device_type):
-    """One of part (b) and (c)'s two processes on the card, over gloo."""
+    """One of part (b) and (c)'s two processes on the card, over gloo;
+    writes ``mesh_rank{rank}.json``."""
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
@@ -2895,27 +2904,41 @@ def _mesh_rank(rank, tmp, device_type):
         json.dump(out, f)
 
 
-def _spawn_mesh_ranks(tmp, dev):
-    """Parts (b) and (c)'s two processes (spawned after the parent freed its
-    models); killed if they outlast ``MESH_SPAWN_TIMEOUT``."""
+def _spawn_ranks(target, tmp, dev, name):
+    """Two processes of ``target(rank, tmp, device_type)`` (spawned after the
+    parent freed its models), each of which writes ``{name}_rank{rank}.json``;
+    killed if they outlast ``MESH_SPAWN_TIMEOUT``. Returns what they wrote
+    and the seconds from spawn to exit."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(_mesh_rank, args=(tmp, dev.type), nprocs=2, join=False,
+    ctx = mp.start_processes(target, args=(tmp, dev.type), nprocs=2, join=False,
                              start_method="spawn")
     t0 = time.perf_counter()
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > MESH_SPAWN_TIMEOUT:
-                raise AssertionError(f"parts (b) and (c) did not end in {MESH_SPAWN_TIMEOUT} s")
+                raise AssertionError(f"the two {name} processes did not end in "
+                                     f"{MESH_SPAWN_TIMEOUT} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
     outs = []
     for rank in range(2):
-        with open(os.path.join(tmp, f"mesh_rank{rank}.json")) as f:
+        with open(os.path.join(tmp, f"{name}_rank{rank}.json")) as f:
             outs.append(json.load(f))
     return outs, time.perf_counter() - t0
+
+
+def _check_shared_card(dev, card, tag):
+    """Fail loudly when the card's compute mode lets one process at a time
+    use it: two ranks cannot then share it."""
+    mode = "no card" if dev.type != "cuda" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[{tag}] compute mode {mode!r} on {card}")
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"compute mode {mode}: two processes cannot share the card")
 
 
 def phase_mesh(dev, card, tmp):
@@ -2926,13 +2949,7 @@ def phase_mesh(dev, card, tmp):
 
     from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
 
-    mode = "no card" if dev.type != "cuda" else subprocess.run(
-        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    log(f"[mesh] compute mode {mode!r} on {card}")
-    if "exclusive" in mode.lower():
-        raise AssertionError(f"compute mode {mode}: two processes cannot share the card, so "
-                             f"parts (b) and (c) cannot run")
+    _check_shared_card(dev, card, "mesh")
     requests = _write_requests(tmp, [float(SECONDS)] * MESH_B, seed=9)
     with open(os.path.join(tmp, "mesh_requests.json"), "w", encoding="utf-8") as f:
         json.dump(requests, f)
@@ -2954,7 +2971,7 @@ def phase_mesh(dev, card, tmp):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    outs, wall = _spawn_mesh_ranks(tmp, dev)
+    outs, wall = _spawn_ranks(_mesh_rank, tmp, dev, "mesh")
     medium = WHISPER_CONFIGS["medium"]
     expected = {"la_log10_mel": 1, "la_bias_attention": medium.n_audio_layer, "la_row_lse": 1,
                 "la_viterbi": 1}
@@ -2993,6 +3010,358 @@ def phase_mesh(dev, card, tmp):
                 raise AssertionError(f"(c) rank {rank}: kernel {name} was not launched")
     log(f"[mesh] parts (b) and (c): two processes on {card}, {wall:.1f} s from spawn to exit")
     return outs[0]["b_counts"], outs[0]["c_counts"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: pipeline parallelism (parallel/pipeline.py) on the one card
+# ---------------------------------------------------------------------------
+
+PIPE_MICRO = 2               # micro-batches of parts (a) and (b), the CLIs' default
+
+
+def _medium_train_setup(dev):
+    """Part (b)'s step and phase "mesh" (a)'s: whisper-medium bf16 (tanh
+    GELU, CTC head of 21129 classes, align CE + CTC + transcript CE, bf16
+    accumulation and Adam mu) at bench_train's micro-batch of 2 x 30 s, one
+    micro-batch a step, a transcript-only sample in it; random weights from
+    a seed."""
+    import numpy as np
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+    from lyricalignment_tpu_torch.train.trainer import TrainConfig
+
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True)
+    cfg = AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=C_CTC, train_transcript=True)
+    tcfg = TrainConfig(accum_grad_steps=1, use_ctc=True, vocab_size=C_CTC - 1, warmup_steps=0,
+                       total_steps=2000, grad_accum_dtype=torch.bfloat16,
+                       adam_mu_dtype=torch.bfloat16)
+    stacked = _train_batch(np.random.default_rng(0), 1, TRAIN_B, wcfg.n_vocab, 400)
+    stacked["has_alignment"][0, 1] = False
+    with torch.device(dev):
+        model = AlignModel(cfg)
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    return model, tcfg, stacked
+
+
+def _block_bytes(model, sides=("encoder", "decoder")):
+    """Bytes of the parameters of the whisper blocks of ``sides`` that a
+    process holds (a pipelined model's other stages sit on the meta
+    device)."""
+    return sum(p.numel() * p.element_size() for n, p in model.whisper_model.named_parameters()
+               if n.split(".")[0] in sides and n.split(".")[1] == "blocks" and not p.is_meta)
+
+
+def _peak_reset(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gb(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _pipe_rank(rank, tmp, device_type):
+    """One of phase "pipe"'s two processes on the card, over gloo: stage
+    ``rank`` of the pipeline; writes ``pipe_rank{rank}.json``."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv", rank=rank, world_size=2)
+    try:
+        from lyricalignment_tpu_torch import kernels
+        from lyricalignment_tpu_torch.parallel.mesh import make_mesh, shard_align_params
+        from lyricalignment_tpu_torch.parallel.pipeline import (
+            make_pipeline_encode_fn,
+            make_pipeline_logits_fn,
+            pipeline_encode_audio,
+            stage_align_params,
+        )
+
+        if dev.type == "cuda":
+            kernels.library()
+        out = {}
+        # (a): whisper-medium alignment through the CLI's --mesh-pipe 2 path
+        t0 = time.perf_counter()
+        records, mel = _mesh_inputs(tmp, dev)
+        model = _medium_align_model(dev)
+        _align(model, records[:2], mesh_pipe=2)  # stages the model; first-use allocations
+        out["block_bytes"] = _block_bytes(model, ("encoder",))
+        _peak_reset(dev)
+        out["a_segs"], out["a_counts"], out["a_wall"] = _align(model, records, mesh_pipe=2)
+        out["a_peak_gb"] = _peak_gb(dev)
+        with torch.inference_mode():
+            enc = pipeline_encode_audio(model.whisper_model, mel, model.mesh, PIPE_MICRO)
+        torch.save(enc.cpu(), os.path.join(tmp, f"pipe_enc_rank{rank}.pt"))
+        del model, enc
+        tiny = _mesh_tiny_model(dev)
+        out["tiny_segs"], _, _ = _align(tiny, records, mesh_pipe=2)
+        out["a_seconds"] = time.perf_counter() - t0
+        del tiny
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # (b): train steps with both halves staged, the tiny float32 model's
+        # then whisper-medium's (a first step, then one timed)
+        for name, setup in (("tiny", _mesh_train_setup), ("medium", _medium_train_setup)):
+            t0 = time.perf_counter()
+            model, tcfg, stacked = setup(dev)
+            mesh = make_mesh(1, 2, dev.type)
+            shard_align_params(model, mesh, tp=False)
+            stage_align_params(model, mesh, ("encoder", "decoder"))
+            fns = (make_pipeline_encode_fn(mesh, PIPE_MICRO),
+                   make_pipeline_logits_fn(mesh, PIPE_MICRO))
+            out[f"{name}_block_bytes"] = _block_bytes(model)
+            if name == "tiny":
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+                _, grads, after = _train_capture(model, tcfg, stacked, mesh, *fns)
+                if rank == 0:
+                    torch.save((grads, after), os.path.join(tmp, "pipe_tiny_step.pt"))
+                model.load_state_dict(state)
+            _peak_reset(dev)
+            out[f"{name}_losses"], out[f"{name}_counts"], _ = _train_once(
+                model, tcfg, stacked, mesh, *fns)
+            out[f"{name}_peak_gb"] = _peak_gb(dev)
+            t1 = time.perf_counter()
+            _train_once(model, tcfg, stacked, mesh, *fns)
+            out[f"{name}_step_ms"] = (time.perf_counter() - t1) * 1e3
+            out[f"{name}_seconds"] = time.perf_counter() - t0
+            del model, stacked
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"pipe_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _train_capture(model, tcfg, stacked, mesh=None, encode_fn=None, decode_fn=None):
+    """One make_train_step: (losses, the gradients the optimizer got and the
+    parameters after, both full (a pipelined model's gathered from each
+    stage) on the host)."""
+    import torch
+
+    from lyricalignment_tpu_torch.parallel.mesh import gather_state_dict, gather_tensors
+    from lyricalignment_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    state, tx = init_train_state(model, tcfg)
+    grads, update = {}, tx.update
+
+    def spy(params, got, opt_state):
+        local = {n: torch.empty_like(p) if p.is_meta else
+                 (got[n] if got.get(n) is not None else torch.zeros_like(p))
+                 for n, p in model.named_parameters()}
+        grads.update({n: g.cpu() for n, g in gather_tensors(model, local).items()})
+        return update(params, got, opt_state)
+
+    tx.update = spy
+    _, losses = make_train_step(tcfg, tx, mesh, encode_fn, decode_fn)(state, stacked, 3)
+    after = {n: t.cpu() for n, t in gather_state_dict(model).items()}
+    return {k: float(v) for k, v in losses.items()}, grads, after
+
+
+def _micro_batched(n_micro):
+    """(encode_fn, decode_fn) of one process that run the whisper blocks on
+    ``n_micro`` micro-batches one after another and concatenate them: the
+    pipeline's arithmetic without its stages and transport."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.whisper import decoder_blocks, encoder_blocks
+
+    def encode_fn(whisper, mel, remat=False):
+        enc = whisper.encoder
+        return enc(mel, remat=remat, run_blocks=lambda x, remat: torch.cat(
+            [encoder_blocks(enc.blocks, enc.cfg, h, remat) for h in x.chunk(n_micro)]))
+
+    def decode_fn(whisper, tokens, audio_features, remat=False):
+        dec = whisper.decoder
+        return dec(tokens, audio_features, remat=remat, run_blocks=lambda x, xa, remat: torch.cat(
+            [decoder_blocks(dec.blocks, h, a, remat)
+             for h, a in zip(x.chunk(n_micro), xa.chunk(n_micro))]))
+
+    return encode_fn, decode_fn
+
+
+def _rel(got, want):
+    return max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+
+
+def phase_pipe(dev, card, tmp):
+    """Phase 10 (see the module docstring): the single-process references in
+    this process, then two spawned processes, the pipeline's two stages,
+    sharing the card over gloo. Returns rank 0's launches of (a) and (b)."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+
+    _check_shared_card(dev, card, "pipe")
+    requests = _write_requests(tmp, [float(SECONDS)] * MESH_B, seed=9)
+    with open(os.path.join(tmp, "mesh_requests.json"), "w", encoding="utf-8") as f:
+        json.dump(requests, f)
+
+    # one process: (a)'s bf16 encoder, segments, peak memory and block bytes,
+    # the same in float32 on the bf16-rounded weights, the tiny model's
+    # segments; (b)'s single steps, the tiny one also with the pipeline's
+    # micro-batches
+    records, mel = _mesh_inputs(tmp, dev)
+    model = _medium_align_model(dev)
+    _align(model, records[:2])
+    single_bytes = _block_bytes(model, ("encoder",))
+    _peak_reset(dev)
+    u_segs, u_counts, u_wall = _align(model, records)
+    u_peak = _peak_gb(dev)
+    with torch.inference_mode():
+        u_enc = model.whisper_model.embed_audio(mel)
+    del model
+    model = _medium_align_model(dev, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        enc32 = model.whisper_model.embed_audio(mel)
+    segs32, _, _ = _align(model, records)
+    del model, mel
+    tiny_segs, _, _ = _align(_mesh_tiny_model(dev), records)
+    model, tcfg, stacked = _mesh_train_setup(dev)
+    tiny_lr = {"align_rnn.": tcfg.head_lr, "whisper_model.": tcfg.backbone_lr}
+    tiny_loss, tiny_grads, tiny_after = _train_capture(model, tcfg, stacked)
+    model, tcfg, stacked = _mesh_train_setup(dev)
+    split_loss, split_grads, split_after = _train_capture(model, tcfg, stacked, None,
+                                                          *_micro_batched(PIPE_MICRO))
+    model, tcfg, stacked = _medium_train_setup(dev)
+    single_train_bytes = _block_bytes(model)
+    _peak_reset(dev)
+    m_loss, m_counts, _ = _train_once(model, tcfg, stacked)
+    m_peak = _peak_gb(dev)
+    t1 = time.perf_counter()
+    _train_once(model, tcfg, stacked)
+    m_ms = (time.perf_counter() - t1) * 1e3
+    del model, stacked
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[pipe] one process: whisper-medium bf16 align_records of {MESH_B} x {SECONDS} s "
+        f"{u_wall:.3f} s, max_memory_allocated {u_peak:.2f} GB, block parameters "
+        f"{single_bytes / 1e6:.1f} MB (encoder); the bf16 train step of {TRAIN_B} x {SECONDS} s "
+        f"{m_ms:.1f} ms, max_memory_allocated {m_peak:.2f} GB, block parameters "
+        f"{single_train_bytes / 1e6:.1f} MB, losses {json.dumps(m_loss)}")
+
+    outs, wall = _spawn_ranks(_pipe_rank, tmp, dev, "pipe")
+    medium = WHISPER_CONFIGS["medium"]
+    # each stage runs half the encoder's blocks on each micro-batch
+    per_stage = medium.n_audio_layer // 2 * PIPE_MICRO
+    expected_a = {"la_log10_mel": 1, "la_bias_attention": per_stage, "la_row_lse": 1,
+                  "la_viterbi": 1}
+    expected_b = {"la_log10_mel": 1, "la_attention_fwd": per_stage,
+                  "la_attention_dkdv": per_stage, "la_attention_dq": per_stage}
+    base32 = rel_l2(u_enc, enc32)
+    base_share = _within_frame(u_segs, segs32)
+    grads, after = torch.load(os.path.join(tmp, "pipe_tiny_step.pt"))
+    for rank, out in enumerate(outs):
+        enc = torch.load(os.path.join(tmp, f"pipe_enc_rank{rank}.pt")).to(dev)
+        equal = bool(torch.equal(enc, u_enc)) and out["a_segs"] == u_segs
+        rel16, rel32 = rel_l2(enc, u_enc), rel_l2(enc, enc32)
+        share32 = _within_frame(out["a_segs"], segs32)
+        t_flips, t_worst = _frame_flips(out["tiny_segs"], tiny_segs)
+        log(f"[pipe-a] rank {rank}: whisper-medium bf16 --mesh-pipe 2 over gloo "
+            f"(broadcasts over the pair's group), {PIPE_MICRO} micro-batches of {MESH_B // PIPE_MICRO}, "
+            f"B={MESH_B} x {SECONDS} s: align_records {out['a_wall']:.3f} s (one process "
+            f"{u_wall:.3f}); encoder block parameters {out['block_bytes'] / 1e6:.1f} MB of "
+            f"{single_bytes / 1e6:.1f}; max_memory_allocated {out['a_peak_gb']:.2f} GB (one "
+            f"process {u_peak:.2f}); encoder and segments equal to one process's: {equal} "
+            f"(rel-L2 {rel16:.3e}; against float32 on the same weights {rel32:.3e}, one "
+            f"process {base32:.3e}; onsets/offsets within a frame of float32's {share32:.4f}, "
+            f"one process {base_share:.4f}); tiny float32 model {t_flips} moved, at most "
+            f"{t_worst:.2e} s (<= 1e-4); launches {out['a_counts']}; part (a) "
+            f"{out['a_seconds']:.1f} s")
+        if out["a_counts"] != expected_a or 2 * out["block_bytes"] != single_bytes:
+            raise AssertionError(f"(a) rank {rank}: launches {out['a_counts']} (expected "
+                                 f"{expected_a}), block bytes {out['block_bytes']} of "
+                                 f"{single_bytes}")
+        if not equal and (rel32 > 1.1 * base32 or share32 < base_share - 0.01):
+            raise AssertionError(f"(a) rank {rank}: the pipeline adds error beyond the bf16 "
+                                 f"rounding of one process")
+        if t_worst > 1e-4:
+            raise AssertionError(f"(a) rank {rank}: the tiny float32 model's segments moved")
+        tiny_rel = _rel(out["tiny_losses"], tiny_loss)
+        m_rel = _rel(out["medium_losses"], m_loss)
+        log(f"[pipe-b] rank {rank}: train steps with both halves staged, {PIPE_MICRO} "
+            f"micro-batches: whisper-medium bf16 {TRAIN_B} x {SECONDS} s: losses max rel diff "
+            f"{m_rel:.2e} against one process (<= 1e-3), step {out['medium_step_ms']:.1f} ms "
+            f"(one process {m_ms:.1f}), max_memory_allocated {out['medium_peak_gb']:.2f} GB "
+            f"(one process {m_peak:.2f}), block parameters "
+            f"{out['medium_block_bytes'] / 1e6:.1f} MB of {single_train_bytes / 1e6:.1f}, "
+            f"launches {out['medium_counts']}; tiny float32 losses max rel diff "
+            f"{tiny_rel:.2e} (<= 1e-5), launches {out['tiny_counts']}; part (b) "
+            f"{out['tiny_seconds'] + out['medium_seconds']:.1f} s")
+        if out["medium_counts"] != expected_b or out["tiny_counts"].keys() != expected_b.keys():
+            raise AssertionError(f"(b) rank {rank}: launches {out['medium_counts']} / "
+                                 f"{out['tiny_counts']}, expected {expected_b}")
+        if 2 * out["medium_block_bytes"] != single_train_bytes:
+            raise AssertionError(f"(b) rank {rank}: block bytes {out['medium_block_bytes']}")
+        if m_rel > 1e-3 or tiny_rel > 1e-5:
+            raise AssertionError(f"(b) rank {rank}: losses {out['medium_losses']} / "
+                                 f"{out['tiny_losses']} against {m_loss} / {tiny_loss}")
+    # the tiny float32 step's gradients and updates, held to one process
+    # that runs the same micro-batches one after another (the pipeline's
+    # arithmetic without its transport). Beside it, how far the micro-batches
+    # alone move one process's step (cuBLAS picks its algorithms by the
+    # rows), and the pipelined step's distance to the unsplit process: at
+    # most 1.1x that, plus 1e-5. Adam's first step is about lr * sign(g): an
+    # entry whose gradient is at the level of float32 noise may flip, so the
+    # updates are held at 1e-5 where |g| is at least 1e-3 of its tensor's
+    # largest, and elsewhere at most 1 in 1000 entries of a tensor may be
+    # off by more than 2e-2 of the rate
+    grads, after = torch.load(os.path.join(tmp, "pipe_tiny_step.pt"))
+    log(f"[pipe-b] tiny float32 step, one process with {PIPE_MICRO} micro-batches against "
+        f"unsplit: losses max rel diff {_rel(split_loss, tiny_loss):.2e}")
+    failed = []
+    for prefix, lr in tiny_lr.items():
+        names = [n for n in tiny_grads if n.startswith(prefix)]
+
+        def flat(d):
+            return torch.cat([d[n].flatten() for n in names])
+
+        g_split = rel_l2(flat(grads), flat(split_grads))
+        g_unsplit, split_unsplit = (rel_l2(flat(grads), flat(tiny_grads)),
+                                    rel_l2(flat(split_grads), flat(tiny_grads)))
+        firm = {n: split_grads[n].abs() >= 1e-3 * split_grads[n].abs().max() for n in names}
+        diff = {n: (after[n] - split_after[n]).abs() for n in names}
+        off = sum(int((diff[n][firm[n]] > 1e-5).sum()) for n in names)
+        n_firm = sum(int(firm[n].sum()) for n in names)
+        share = {n: float((diff[n] > 2e-2 * lr).double().mean()) for n in names}
+        worst = max(share, key=share.get)
+
+        def flips(a, b):
+            return sum(int(((a[n] - b[n]).abs() > 2e-2 * lr).sum()) for n in names)
+
+        log(f"[pipe-b] tiny float32 step, {prefix[:-1]}: against one process with the same "
+            f"micro-batches: gradients rel-L2 {g_split:.2e} (<= 1e-5); {off} of the {n_firm} "
+            f"entries with |g| >= 1e-3 of their tensor's largest off by more than 1e-5 (none "
+            f"allowed); entries off by more than 2e-2 lr: at most {share[worst]:.2e} of a "
+            f"tensor, in {worst} (<= 1e-3). Against the unsplit process: gradients rel-L2 "
+            f"{g_unsplit:.2e}, the micro-batched process's {split_unsplit:.2e} (<= 1.1x + "
+            f"1e-5); entries off by more than 2e-2 lr {flips(after, tiny_after)}, the "
+            f"micro-batched process's {flips(split_after, tiny_after)}")
+        if (g_split > 1e-5 or off or share[worst] > 1e-3
+                or g_unsplit > 1.1 * split_unsplit + 1e-5):
+            failed.append(prefix[:-1])
+    if failed:
+        raise AssertionError(f"(b) the pipelined tiny step's {failed} gradients or parameters "
+                             f"differ from one process's")
+    log(f"[pipe] two processes on {card}, {wall:.1f} s from spawn to exit")
+    return outs[0]["a_counts"], outs[0]["medium_counts"]
 
 
 def main() -> int:
@@ -3071,6 +3440,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             mesh_tp_counts, mesh_dp_counts = phase_mesh(dev, card, tmp)
         log(f"[mesh] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            pipe_counts, pipe_train_counts = phase_pipe(dev, card, tmp)
+        log(f"[pipe] phase passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
@@ -3106,6 +3481,10 @@ def main() -> int:
         # --mesh-model 2, (c) the train step under --mesh-data 2
         row["mesh_model2_rank_launches"] = mesh_tp_counts.get(launcher, 0)
         row["mesh_data2_rank_launches"] = mesh_dp_counts.get(launcher, 0)
+        # and in phase "pipe": (a) the alignment batch under --mesh-pipe 2,
+        # (b) the whisper-medium train step with both halves staged
+        row["mesh_pipe2_rank_launches"] = pipe_counts.get(launcher, 0)
+        row["mesh_pipe2_train_rank_launches"] = pipe_train_counts.get(launcher, 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,11 +26,17 @@ Layering:
                  timestamp rules, the temperature-fallback ladder and the
                  long-form seek loop
     train/     — multitask losses, the AdamW chain, trainer, checkpoints
+    parallel/  — scale-out on ``torch.distributed``: the ("data", "model")
+                 mesh with data, tensor and sequence parallelism (mesh),
+                 GPipe pipeline stages over the model axis (pipeline)
     data/, text/, utils/ — host-side records, WAV IO, frame labels, the
                  training pipeline, the BERT and whisper (BPE) tokenizers,
                  pinyin table and phonemizer, eval normalisers, MAE, CER, PER
-    cli/, api.py — alignment, transcription, training and transcript
-                 evaluation entry points (``device="cuda"`` by default)
+    prep/      — offline data preparation, host only: the pronunciation
+                 table, MUSDB mixing, dataset paths, vocal separation
+    cli/, api.py — alignment, transcription, training, transcript
+                 evaluation, checkpoint conversion, post-processing and the
+                 JSONL service (``device="cuda"`` by default)
 """
 
 __version__ = "0.1.0"

@@ -29,6 +29,7 @@ from lyricalignment_tpu_torch.models.convert import (
     load_reference_checkpoint,
 )
 from lyricalignment_tpu_torch.parallel.mesh import DATA_AXIS, axis_size, make_mesh
+from lyricalignment_tpu_torch.parallel.pipeline import stage_align_params
 from lyricalignment_tpu_torch.models.whisper import (
     WHISPER_CONFIGS,
     WHISPER_DIMS,
@@ -83,9 +84,10 @@ def init_distributed(device: str = "cuda") -> torch.device:
     return dev
 
 
-def add_mesh_args(parser: argparse.ArgumentParser, what: str) -> None:
+def add_mesh_args(parser: argparse.ArgumentParser, what: str, pipe: bool = False) -> None:
     """``--mesh-data`` / ``--mesh-model`` (JAX's flags and semantics: 0 =
-    single device, -1 = the rest of the world)."""
+    single device, -1 = the rest of the world), and ``--mesh-pipe`` for the
+    CLIs that JAX gives it (``pipe``)."""
     parser.add_argument("--mesh-data", type=int, default=0,
                         help=f"shard {what} over N ranks (data parallel; 0 = single "
                              f"device, -1 = the rest of the world); the batch size must "
@@ -93,25 +95,43 @@ def add_mesh_args(parser: argparse.ArgumentParser, what: str) -> None:
     parser.add_argument("--mesh-model", type=int, default=1,
                         help="tensor-shard the whisper backbone over N ranks "
                              "(Megatron TP; combine with --mesh-data)")
+    if pipe:
+        parser.add_argument("--mesh-pipe", type=int, default=1,
+                            help="GPipe pipeline stages over the model mesh axis: encoder "
+                                 "blocks, plus the teacher-forced decoder blocks when "
+                                 "training the transcript task (exclusive with "
+                                 "--mesh-model > 1; the layers must divide evenly)")
 
 
 def model_mesh(model, args, device: torch.device, shard, batch_size: int):
     """The mesh ``model`` runs on for ``args.mesh_data`` / ``args.mesh_model``
-    (None: one device, ``--mesh-data 0 --mesh-model 1``): the one it was
-    sharded on, or a new ("data", "model") mesh over the process group that
-    :func:`init_distributed` joins, which ``shard``
-    (``parallel.mesh.shard_align_params`` or ``shard_whisper``) cuts it for
-    here, tensor-parallel when the model axis is above 1. The world must
-    hold ``mesh_data * mesh_model`` ranks (``-1`` takes the rest), or it
-    raises; a ``batch_size`` that the data axis does not divide exits, as in
-    JAX."""
+    / ``args.mesh_pipe`` (None: one device, ``--mesh-data 0 --mesh-model 1
+    --mesh-pipe 1``): the one it was sharded on, or a new ("data", "model")
+    mesh over the process group that :func:`init_distributed` joins, which
+    ``shard`` (``parallel.mesh.shard_align_params`` or ``shard_whisper``)
+    cuts it for here, tensor-parallel when ``mesh_model`` is above 1. Under
+    ``mesh_pipe`` the model axis holds the pipe stages
+    (``model=max(mesh_model, mesh_pipe)``, as JAX builds it) and the
+    AlignModel is cut to its rank's stage (``parallel.pipeline
+    .stage_align_params``: the encoder's blocks, and the decoder's when it
+    trains the transcript task); ``mesh_pipe`` with ``mesh_model`` exits.
+    The world must hold ``mesh_data * max(mesh_model, mesh_pipe)`` ranks
+    (``-1`` takes the rest), or it raises; a ``batch_size`` that the data
+    axis does not divide exits, as in JAX."""
     mesh_data, mesh_model = getattr(args, "mesh_data", 0), getattr(args, "mesh_model", 1)
-    if not mesh_data and mesh_model <= 1:
+    mesh_pipe = getattr(args, "mesh_pipe", 1)
+    if mesh_pipe > 1 and mesh_model > 1:
+        raise SystemExit("--mesh-pipe and --mesh-model both use the model mesh axis; pick one")
+    if not mesh_data and mesh_model <= 1 and mesh_pipe <= 1:
         return None
     if getattr(model, "mesh", None) is None:
         dev = init_distributed(device.type)
-        shard(model, make_mesh(data=mesh_data or -1, model=mesh_model, device_type=dev.type),
-              tp=mesh_model > 1)
+        mesh = make_mesh(data=mesh_data or -1, model=max(mesh_model, mesh_pipe),
+                         device_type=dev.type)
+        shard(model, mesh, tp=mesh_model > 1)
+        if mesh_pipe > 1:
+            sides = ("encoder", "decoder") if model.cfg.train_transcript else ("encoder",)
+            stage_align_params(model, mesh, sides)
     data = axis_size(model.mesh, DATA_AXIS)
     if batch_size % data:
         raise SystemExit(f"batch size {batch_size} not divisible by the data axis ({data})")

@@ -11,8 +11,11 @@ exact per-sample trim.
 torchrun ranks (``parallel.mesh``): batches are padded to the full
 ``--batch-size``, which the data axis must divide, each data rank aligns its
 rows with the backbone tensor-sharded over the model axis, and rank 0
-gathers the segments in input order and alone prints. ``--mesh-pipe`` (the
-JAX package's pipeline-staged encoder) is absent.
+gathers the segments in input order and alone prints. ``--mesh-pipe N``
+stages the encoder instead (``parallel.pipeline``: N stages over the model
+axis, each rank holding 1 / N of the blocks), with 2 micro-batches of a data
+rank's rows when they are even and 1 otherwise; it excludes
+``--mesh-model``.
 
     python -m lyricalignment_tpu_torch.cli.inference_alignment \\
         -f test.json --model-dir result --bert-vocab vocab.txt --use-ctc-loss
@@ -20,6 +23,9 @@ JAX package's pipeline-staged encoder) is absent.
         -m lyricalignment_tpu_torch.cli.inference_alignment -f test.json \\
         --model-dir result --bert-vocab vocab.txt --batch-size 8 \\
         --mesh-data 2 --mesh-model 2
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m lyricalignment_tpu_torch.cli.inference_alignment -f test.json \\
+        --model-dir result --bert-vocab vocab.txt --batch-size 8 --mesh-pipe 2
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ import torch
 
 from lyricalignment_tpu_torch import HOP_LENGTH, N_SAMPLES
 from lyricalignment_tpu_torch.cli.common import (
+    add_asset_args,
     add_mesh_args,
+    build_tokenizers,
     init_distributed,
     load_model_dir,
     model_mesh,
@@ -49,15 +57,13 @@ from lyricalignment_tpu_torch.ops.viterbi import (
 )
 from lyricalignment_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    axis_size,
     batch_sharding,
     gather_objects,
     is_primary,
     shard_align_params,
 )
-from lyricalignment_tpu_torch.text.bert_tokenizer import (
-    BertWordPieceTokenizer,
-    make_synthetic_vocab,
-)
+from lyricalignment_tpu_torch.parallel.pipeline import make_pipeline_encode_fn
 from lyricalignment_tpu_torch.text.pinyin import load_pronunciation_table
 from lyricalignment_tpu_torch.utils.metrics import mae
 
@@ -87,11 +93,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
-    add_mesh_args(p, "inference batches")
-    p.add_argument("--bert-vocab", type=str, default=None,
-                   help="bert-base-chinese vocab.txt (required for id parity)")
-    p.add_argument("--synthetic-vocab", action="store_true",
-                   help="tiny synthetic vocabulary (smoke runs only)")
+    add_mesh_args(p, "inference batches", pipe=True)
+    add_asset_args(p)
     return p.parse_args(argv)
 
 
@@ -109,16 +112,22 @@ def align_records(records, model, table, bert, args):
     """Yield (record, [[on, off], ...]) in input order.
 
     ``args`` carries use_ctc_loss, batch_size, bucket_seconds,
-    max_label_len, is_mixture and (optionally) no_fused_align, mesh_data
-    and mesh_model; the batch runs on the device of ``model``'s parameters.
-    Under a mesh every rank reads every record, runs its data rank's rows of
-    each batch (padded to ``batch_size``) and gets every segment back.
+    max_label_len, is_mixture and (optionally) no_fused_align, mesh_data,
+    mesh_model and mesh_pipe; the batch runs on the device of ``model``'s
+    parameters. Under a mesh every rank reads every record, runs its data
+    rank's rows of each batch (padded to ``batch_size``) and gets every
+    segment back; under ``mesh_pipe`` the encoder runs pipelined.
     """
     device = next(model.parameters()).device
     mode = "ctc" if args.use_ctc_loss else "ce"
     batch_size = max(1, getattr(args, "batch_size", 1))
     fused = not getattr(args, "no_fused_align", False)
     mesh = model_mesh(model, args, device, shard_align_params, batch_size)
+    encode_fn = None
+    if getattr(args, "mesh_pipe", 1) > 1:
+        # 2 micro-batches overlap the stages; 1 for an odd local batch
+        b_local = batch_size // axis_size(mesh, DATA_AXIS)
+        encode_fn = make_pipeline_encode_fn(mesh, n_micro=2 if b_local % 2 == 0 else 1)
     fc = model.align_rnn.fc
 
     buckets = {}
@@ -157,7 +166,7 @@ def align_records(records, model, table, bert, args):
                 model, torch.from_numpy(a[rows]).to(device),
                 frame_lengths=torch.from_numpy(frames[rows]).to(device),
                 mel_lengths=torch.from_numpy(mel_lens[rows]).to(device),
-                align_head_output="hidden" if fused else "logits")
+                align_head_output="hidden" if fused else "logits", encode_fn=encode_fn)
             frames = np.minimum(frames, out.shape[1])
             lab_t, len_t, fr_t = (torch.from_numpy(x[rows]) for x in (labels, lens, frames))
             if fused:
@@ -185,18 +194,12 @@ def main(argv=None):
         raise SystemExit("--model-dir and --test-data must exist")
 
     device = args.device
-    if args.mesh_data or args.mesh_model > 1:
+    if args.mesh_data or args.mesh_model > 1 or args.mesh_pipe > 1:
         device = str(init_distributed(args.device))
     _, model, _ = load_model_dir(args.model_dir, args.model_name, use_bf16=args.bf16,
                                  fast_gelu=args.fast_gelu, int8_encoder=args.int8_encoder,
                                  device=device)
-    if args.bert_vocab:
-        bert = BertWordPieceTokenizer(vocab_path=args.bert_vocab)
-    elif args.synthetic_vocab:
-        bert = BertWordPieceTokenizer(vocab=make_synthetic_vocab(size=21128))
-    else:
-        raise SystemExit("Provide --bert-vocab vocab.txt (bert-base-chinese) or "
-                         "pass --synthetic-vocab for an offline smoke run.")
+    bert, _ = build_tokenizers(args)
     table = load_pronunciation_table()
     records = read_data(args.test_data)
 

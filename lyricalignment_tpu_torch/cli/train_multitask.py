@@ -23,11 +23,11 @@ the model axis and sums the gradients over the data group
 profiles and checkpoints, which hold the full state gathered from the
 shards, so a model dir written under any mesh loads unsharded and
 ``--resume`` re-shards it. The dev set is evaluated whole on every data
-rank.
-
-Not ported yet (absent): the pipeline flags (``--mesh-pipe``,
-``--pipe-microbatches``). The whisper BPE codec (``--whisper-bpe``) is
-there, as in every CLI (``cli/common.py``).
+rank. ``--mesh-pipe N`` stages the encoder over the model axis instead, and
+the teacher-forced decoder too when it trains the transcript task
+(``parallel.pipeline``: GPipe with ``--pipe-microbatches`` micro-batches of
+a data rank's rows; each rank holds and updates its stage's blocks and the
+replicated rest).
 
 Example:
     python -m lyricalignment_tpu_torch.cli.train_multitask \\
@@ -37,6 +37,8 @@ Example:
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m lyricalignment_tpu_torch.cli.train_multitask ... \\
         --train-batch-size 4 --mesh-data 2 --mesh-model 2
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m lyricalignment_tpu_torch.cli.train_multitask ... --mesh-pipe 2
 """
 
 from __future__ import annotations
@@ -67,6 +69,10 @@ from lyricalignment_tpu_torch.data.pipeline import (
 from lyricalignment_tpu_torch.data.records import read_many
 from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
 from lyricalignment_tpu_torch.parallel.mesh import is_primary, shard_align_params
+from lyricalignment_tpu_torch.parallel.pipeline import (
+    make_pipeline_encode_fn,
+    make_pipeline_logits_fn,
+)
 from lyricalignment_tpu_torch.text.pinyin import load_pronunciation_table
 from lyricalignment_tpu_torch.text.whisper_tokenizer import num_languages_for_vocab
 from lyricalignment_tpu_torch.train.checkpoints import (
@@ -133,14 +139,16 @@ def parse_args(argv=None):
                         "optimizer state and step from; the schedule continues")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of the kernels)")
-    add_mesh_args(p, "each micro-batch")
+    add_mesh_args(p, "each micro-batch", pipe=True)
+    p.add_argument("--pipe-microbatches", type=int, default=2,
+                   help="pipeline micro-batches per data shard")
     add_asset_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    meshed = bool(args.mesh_data) or args.mesh_model > 1
+    meshed = bool(args.mesh_data) or args.mesh_model > 1 or args.mesh_pipe > 1
     device = init_distributed(args.device) if meshed else resolve_device(args.device)
     primary = is_primary()
     set_seed(args.seed)
@@ -197,15 +205,24 @@ def main(argv=None):
             if p.dim() >= 2:
                 p.data = p.data.to(torch.bfloat16)
     mesh = model_mesh(model, args, device, shard_align_params, args.train_batch_size)
+    encode_fn = decode_fn = None
     if mesh is not None:
         log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    if args.mesh_pipe > 1:
+        encode_fn = make_pipeline_encode_fn(mesh, n_micro=args.pipe_microbatches)
+        staged = "encoder"
+        if mcfg.train_transcript:
+            decode_fn = make_pipeline_logits_fn(mesh, n_micro=args.pipe_microbatches)
+            staged = "encoder+decoder"
+        log(f"pipeline-parallel {staged}: {args.mesh_pipe} stages x "
+            f"{args.pipe_microbatches} microbatches")
     state, tx = init_train_state(model, tcfg)
     if args.resume:
         restore_train_state(args.resume, state)
         log(f"resumed from {args.resume} at step {state.step}")
     start_step = state.step
-    train_step = make_train_step(tcfg, tx, mesh)
-    eval_step = make_eval_step(tcfg)
+    train_step = make_train_step(tcfg, tx, mesh, encode_fn, decode_fn)
+    eval_step = make_eval_step(tcfg, encode_fn, decode_fn)
 
     init_losses = evaluate(eval_step, model, dev_loader)
     log(f"Initial loss: {init_losses['total']:.4f}, "

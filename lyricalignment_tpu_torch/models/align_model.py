@@ -14,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,7 +25,13 @@ from lyricalignment_tpu_torch.models.align_head import (
     align_head_apply,
     align_head_hidden,
 )
-from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig, init_whisper_weights
+from lyricalignment_tpu_torch.models.whisper import (
+    Whisper,
+    WhisperConfig,
+    decoder_logits,
+    encode_audio,
+    init_whisper_weights,
+)
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
 
 
@@ -96,6 +102,8 @@ def forward_from_audio(
     mel_lengths: Optional[torch.Tensor] = None,
     align_head_output: str = "logits",
     dropout_rows: Optional[Tuple[int, int]] = None,
+    encode_fn: Optional[Callable] = None,
+    decode_fn: Optional[Callable] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Raw padded audio f32[B, samples] (+ decoder input tokens ``y_in``
     int[B, S]) -> ``(align_out, transcribe_logits)``.
@@ -117,9 +125,17 @@ def forward_from_audio(
     ``remat`` checkpoints every transformer block. Under
     ``cfg.freeze_encoder`` the encoder runs under ``torch.no_grad()``, so
     its backward never runs.
+
+    ``encode_fn`` replaces the encoder on every branch, with
+    ``encode_audio``'s calling convention ``(whisper, mel, remat=...)``, and
+    ``decode_fn`` the teacher-forced decoder, with ``decoder_logits``'
+    ``(whisper, tokens, audio_features, remat=...)``: the pipelined ones of
+    ``parallel.pipeline.make_pipeline_encode_fn`` / ``make_pipeline_logits_fn``.
     """
     cfg = model.cfg
-    encoder = model.whisper_model.encoder
+    whisper = model.whisper_model
+    encode_fn = encode_fn or encode_audio
+    decode_fn = decode_fn or decoder_logits
     frozen = torch.no_grad() if cfg.freeze_encoder else contextlib.nullcontext()
     with frozen:
         mel = log_mel(audio, n_mels=cfg.whisper.n_mels)         # [B, n_mels, T_mel]
@@ -132,7 +148,7 @@ def forward_from_audio(
         t_mel = mel.shape[-1]
 
         if not trim_to_input_length or t_mel <= N_FRAMES:
-            embed = encoder(pad_or_trim(mel, N_FRAMES), remat=remat)
+            embed = encode_fn(whisper, pad_or_trim(mel, N_FRAMES), remat=remat)
             embed_for_decoder = embed
             align_embed = embed[:, : _half(t_mel)] if trim_to_input_length else embed
         else:
@@ -141,7 +157,7 @@ def forward_from_audio(
             n_chunks = -(-t_mel // N_FRAMES)
             windows = pad_or_trim(mel, n_chunks * N_FRAMES).reshape(b, n_mels, n_chunks, N_FRAMES)
             windows = windows.permute(0, 2, 1, 3).reshape(b * n_chunks, n_mels, N_FRAMES)
-            embeds = encoder(windows, remat=remat).reshape(b, n_chunks, EMBED_FRAMES, -1)
+            embeds = encode_fn(whisper, windows, remat=remat).reshape(b, n_chunks, EMBED_FRAMES, -1)
             # full windows keep all 1500 frames, the last round(remainder / 2)
             last_len = _half(t_mel - (n_chunks - 1) * N_FRAMES)
             parts = [embeds[:, i] for i in range(n_chunks - 1)] + [embeds[:, -1, :last_len]]
@@ -155,6 +171,5 @@ def forward_from_audio(
                             dropout_rows)
     transcribe_logits = None
     if cfg.train_transcript and y_in is not None:
-        transcribe_logits = model.whisper_model.decoder_logits(y_in, embed_for_decoder,
-                                                              remat=remat)
+        transcribe_logits = decode_fn(whisper, y_in, embed_for_decoder, remat=remat)
     return align_out, transcribe_logits

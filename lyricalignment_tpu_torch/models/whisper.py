@@ -35,7 +35,11 @@ after the sum, the token embedding may be vocab-sharded (the logits are
 gathered), and the decode cache holds the rank's heads. The
 sequence-parallel encode (``encode_audio(sequence_sharding=...)``) keeps a
 rank's frames through the blocks and lets the attention kernels see every
-frame of a rank's heads by an all-to-all.
+frame of a rank's heads by an all-to-all. Pipelined (``parallel.pipeline``),
+a rank holds its stage's blocks, the other stages' on the ``meta`` device,
+and the pipeline takes the place of the loop over the blocks (the forwards'
+``run_blocks``), each stage running :func:`encoder_blocks` /
+:func:`decoder_blocks` on its own.
 
 KV-cached decoding (``init_decode_cache``, ``prime_decode_cache``,
 ``decode_step``) keeps the JAX split cache: cross K/V and the prompt's K/V
@@ -48,6 +52,7 @@ so a step reads nothing back to the host.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -356,6 +361,29 @@ def _run_block(fn, remat: bool, *args):
     return fn(*args)
 
 
+def encoder_blocks(blocks, cfg: WhisperConfig, x: torch.Tensor, remat: bool = False,
+                   seq=None) -> torch.Tensor:
+    """Encoder ``blocks`` in order on the post-stem x [B, T, D], with the
+    one-pass route's zero key bias unless sequence-sharded over ``seq``:
+    the loop of :meth:`AudioEncoder.forward` and a pipeline stage's body."""
+    key_bias = (torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
+                if cfg.onepass_encoder and seq is None else None)
+    for block in blocks:
+        x = _run_block(block.encoder_forward, remat, x, key_bias, cfg.int8_encoder, seq)
+    return x
+
+
+def decoder_blocks(blocks, x: torch.Tensor, xa: torch.Tensor,
+                   remat: bool = False) -> torch.Tensor:
+    """Decoder ``blocks`` in order on the token activations x [B, S, D]
+    under the causal mask, attending to xa [B, T, D]: the loop of
+    :meth:`TextDecoder.forward` and a pipeline stage's body."""
+    mask = _causal_mask(x.shape[1], x.dtype, x.device)
+    for block in blocks:
+        x = _run_block(block.decoder_forward, remat, x, xa, mask)
+    return x
+
+
 class AudioEncoder(nn.Module):
     def __init__(self, cfg: WhisperConfig):
         super().__init__()
@@ -384,7 +412,7 @@ class AudioEncoder(nn.Module):
         return x + self.positional_embedding[: x.shape[1]].to(dtype)
 
     def forward(self, mel: torch.Tensor, remat: bool = False,
-                sequence_sharding=None) -> torch.Tensor:
+                sequence_sharding=None, run_blocks=None) -> torch.Tensor:
         """mel f32[B, n_mels, 3000] -> audio features [B, 1500, D] in the
         compute dtype. ``remat`` checkpoints each block.
 
@@ -394,18 +422,17 @@ class AudioEncoder(nn.Module):
         (attention by the Ulysses all-to-all, which needs T and the heads
         divisible by m; the one-pass key-bias route is off, as in JAX), and
         the features are gathered back to every rank. An inference path:
-        no gradient is summed over the group, so it refuses autograd."""
+        no gradient is summed over the group, so it refuses autograd.
+
+        ``run_blocks(x, remat)`` replaces the loop over the blocks
+        (:func:`encoder_blocks`); ``parallel.pipeline`` pipelines them."""
         x = self._stem(mel)
-        key_bias = None
         seq = sequence_sharding
         if seq is not None:
             x = self._sequence_shard(x, seq)
-        elif self.cfg.onepass_encoder:
-            key_bias = torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
-        for block in self.blocks:
-            x = _run_block(block.encoder_forward, remat, x, key_bias, self.cfg.int8_encoder,
-                           seq)
-        x = _layer_norm(self.ln_post, x)
+        run_blocks = run_blocks or functools.partial(encoder_blocks, self.blocks, self.cfg,
+                                                     seq=seq)
+        x = _layer_norm(self.ln_post, run_blocks(x, remat))
         return x if seq is None else gather_dim(x, 1, seq)
 
     def _sequence_shard(self, x: torch.Tensor, group) -> torch.Tensor:
@@ -417,6 +444,9 @@ class AudioEncoder(nn.Module):
         if any(block.attn.group is not None for block in self.blocks):
             raise ValueError("the sequence-parallel encode takes a replicated encoder, "
                              "not a tensor-parallel one")
+        if any(p.is_meta for p in self.blocks.parameters()):
+            raise ValueError("the sequence-parallel encode takes a replicated encoder, "
+                             "not a pipelined one")
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             raise ValueError("the sequence-parallel encode is an inference path; run it "
                              "under torch.no_grad()")
@@ -468,17 +498,17 @@ class TextDecoder(nn.Module):
         return gather_dim(logits, -1, self.vocab_group)
 
     def forward(self, tokens: torch.Tensor, audio_features: torch.Tensor,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, run_blocks=None) -> torch.Tensor:
         """tokens int[B, S], audio_features [B, T, D] -> logits f32[B, S,
         n_vocab]: pre-LN blocks of causal self-attention, cross-attention
-        and MLP, then the float32 unembedding by the token embedding."""
+        and MLP, then the float32 unembedding by the token embedding.
+        ``run_blocks(x, xa, remat)`` replaces the loop over the blocks
+        (:func:`decoder_blocks`); ``parallel.pipeline`` pipelines them."""
         dtype = self.compute_dtype
-        xa = audio_features.to(dtype)
         s = tokens.shape[1]
         x = self.embed(tokens).to(dtype) + self.positional_embedding[:s].to(dtype)[None]
-        mask = _causal_mask(s, dtype, x.device)
-        for block in self.blocks:
-            x = _run_block(block.decoder_forward, remat, x, xa, mask)
+        run_blocks = run_blocks or functools.partial(decoder_blocks, self.blocks)
+        x = run_blocks(x, audio_features.to(dtype), remat)
         return self.unembed(_layer_norm(self.ln, x))
 
 

@@ -13,16 +13,19 @@ XLA would put it, as Megatron-LM writes them:
 * the spec table (:func:`align_param_specs`) says which parameters are
   column-parallel (q / k / v and fc1: output rows split over the model
   axis), row-parallel (out and fc2: input columns split, the bias added once
-  after the all-reduce), vocab-sharded (``decoder.token_embedding``) or
-  replicated (the conv stem, every LayerNorm, the positional embeddings and
-  the GRU head). The conv stem stays replicated where JAX shards its output
+  after the all-reduce), vocab-sharded (``decoder.token_embedding``),
+  stage-owned (a pipelined side's blocks, ``parallel.pipeline``: whole on
+  the rank of their stage, on the ``meta`` device elsewhere) or replicated
+  (the conv stem, every LayerNorm, the positional embeddings and the GRU
+  head). The conv stem stays replicated where JAX shards its output
   channels: that changes where bytes sit, not what is computed. An
   attention whose head count, or an MLP whose 4 * D, does not divide the
   model axis stays replicated, as JAX replicates an indivisible leaf
   (``mesh.py:148-157``); results are equal either way;
 * :func:`shard_align_params` cuts a full model into its rank's shard in
   place, and :func:`gather_state_dict` puts the full state dict back
-  together (checkpoints are written full, in the reference key layout);
+  together (checkpoints are written full, in the reference key layout; a
+  stage-owned tensor is all-reduced from its owner into zeros);
 * the Megatron operators :func:`copy_to_model` ("f": identity forward,
   all-reduce backward, before a column-parallel linear) and
   :func:`reduce_from_model` ("g": all-reduce forward, identity backward,
@@ -54,7 +57,7 @@ from torch import nn
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-COLUMN, ROW, VOCAB, REPLICATED = "column", "row", "vocab", "replicated"
+COLUMN, ROW, VOCAB, STAGE, REPLICATED = "column", "row", "vocab", "stage", "replicated"
 # the dimension of a parameter that each kind splits over the model axis
 SHARD_DIM = {COLUMN: 0, ROW: 1, VOCAB: 0}
 
@@ -244,13 +247,21 @@ def _linear_specs(prefix: str, kind: str, names, out: Dict[str, str]) -> None:
             out[name] = COLUMN
 
 
-def whisper_param_specs(whisper: nn.Module, model_size: int = 1) -> Dict[str, str]:
-    """``{state_dict name: column | row | vocab | replicated}`` of a Whisper
-    over a model axis of ``model_size`` (JAX ``whisper_param_specs``, with
-    the indivisible-module rule above)."""
+def whisper_param_specs(whisper: nn.Module, model_size: int = 1,
+                        pipe: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """``{state_dict name: column | row | vocab | stage | replicated}`` of a
+    Whisper over a model axis of ``model_size`` (JAX ``whisper_param_specs``,
+    with the indivisible-module rule above). ``pipe`` names the sides
+    ("encoder", "decoder") whose blocks are pipeline stages over the model
+    axis instead: every leaf of their blocks is ``stage``, and nothing is
+    tensor-parallel."""
     cfg = whisper.cfg
     names = set(whisper.state_dict())
     specs = {name: REPLICATED for name in names}
+    if pipe:
+        specs.update({name: STAGE for name in names
+                      if name.split(".")[0] in pipe and name.split(".")[1] == "blocks"})
+        return specs
     sides = (("encoder", cfg.n_audio_layer, cfg.n_audio_head, cfg.n_audio_state, ("attn",)),
              ("decoder", cfg.n_text_layer, cfg.n_text_head, cfg.n_text_state,
               ("attn", "cross_attn")))
@@ -280,8 +291,9 @@ def align_param_specs(model: nn.Module, model_size: int = 1) -> Dict[str, str]:
 
 
 def shard_tensor(t: torch.Tensor, kind: str, rank: int, size: int) -> torch.Tensor:
-    """Rank ``rank``'s slice of a full tensor of ``kind`` (a copy)."""
-    if kind == REPLICATED:
+    """Rank ``rank``'s slice of a full tensor of ``kind`` (a copy; a
+    stage-owned tensor is whole on its owner, see :func:`shard_tensors`)."""
+    if kind in (REPLICATED, STAGE):
         return t
     dim = SHARD_DIM[kind]
     n = t.shape[dim] // size
@@ -310,12 +322,12 @@ def shard_whisper(whisper: nn.Module, mesh, tp: bool = True) -> nn.Module:
     (``tp`` False: replicated, the mesh only recorded). Each sharded
     attention keeps H / m heads and the model group; each sharded MLP its
     group; a vocab-sharded decoder its group and first row. The module
-    records ``mesh`` and the table of what it sharded (``tp_specs``). The
+    records ``mesh`` and the table of what it sharded (``shard_specs``). The
     one-pass key-bias route is turned off, as the JAX CLIs turn it off
     under any mesh: the encoder attention takes the same kernel entry
     without a bias."""
     whisper.mesh = mesh
-    whisper.tp_specs = {}
+    whisper.shard_specs = {}
     whisper.cfg = whisper.encoder.cfg = dataclasses.replace(whisper.cfg, onepass_encoder=False)
     if not tp:
         return whisper
@@ -336,7 +348,7 @@ def shard_whisper(whisper: nn.Module, mesh, tp: bool = True) -> nn.Module:
     if "decoder.token_embedding.weight" in specs:
         whisper.decoder.vocab_group = group
         whisper.decoder.vocab_start = rank * (whisper.cfg.n_vocab // size)
-    whisper.tp_specs = specs
+    whisper.shard_specs = specs
     return whisper
 
 
@@ -347,45 +359,69 @@ def _weight(lin: nn.Module) -> str:
 def shard_align_params(model: nn.Module, mesh, tp: bool = True) -> nn.Module:
     """Cut a full AlignModel into this rank's shard in place (the backbone
     by :func:`shard_whisper`; the GRU head replicated). ``model.mesh`` and
-    ``model.tp_specs`` (full names) record the result."""
+    ``model.shard_specs`` (full names) record the result."""
     shard_whisper(model.whisper_model, mesh, tp)
     model.cfg = dataclasses.replace(model.cfg, whisper=model.whisper_model.cfg)
     model.mesh = mesh
-    model.tp_specs = {f"whisper_model.{k}": v
-                      for k, v in model.whisper_model.tp_specs.items()}
+    model.shard_specs = {f"whisper_model.{k}": v
+                         for k, v in model.whisper_model.shard_specs.items()}
     return model
 
 
 def model_group(module: nn.Module):
-    """The model group of a sharded module (None: not tensor-parallel)."""
+    """The model group of a sharded module (None: neither tensor-parallel
+    nor pipelined)."""
     mesh = getattr(module, "mesh", None)
-    if mesh is None or not module.tp_specs:
+    if mesh is None or not module.shard_specs:
         return None
     return mesh.get_group(MODEL_AXIS)
+
+
+def _from_owner(t: torch.Tensor, device, group) -> torch.Tensor:
+    """A stage-owned tensor on every rank: its owner's copy all-reduced
+    into zeros (``t`` is on the ``meta`` device except on the owner)."""
+    full = torch.zeros(t.shape, dtype=t.dtype, device=device) if t.is_meta else t.clone()
+    return _all_reduce(full, group)
 
 
 def gather_tensors(module: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The full tensors of a sharded module's ``{name: local tensor}`` (its
     state or anything keyed like it: gradients, Adam moments), gathered
-    over the model group on every rank; unsharded names pass through."""
-    specs = getattr(module, "tp_specs", {})
+    over the model group on every rank; unsharded names pass through. Every
+    rank passes the same names in the same order, a stage-owned one on the
+    ``meta`` device where it is not resident."""
+    specs = getattr(module, "shard_specs", {})
     group = model_group(module)
+    device = next(p.device for p in module.parameters() if not p.is_meta)
     out = {}
     for name, t in tensors.items():
         kind = specs.get(name, REPLICATED)
-        out[name] = t if kind == REPLICATED or t is None else _gather(t, SHARD_DIM[kind], group)
+        if kind == REPLICATED or t is None:
+            out[name] = t
+        elif kind == STAGE:
+            out[name] = _from_owner(t, device, group)
+        else:
+            out[name] = _gather(t, SHARD_DIM[kind], group)
     return out
 
 
 def shard_tensors(module: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`gather_tensors`: this rank's slices of full
-    tensors keyed like the sharded module's state."""
-    specs = getattr(module, "tp_specs", {})
+    tensors keyed like the sharded module's state; a stage-owned tensor
+    whole where the module holds it, on the ``meta`` device elsewhere."""
+    specs = getattr(module, "shard_specs", {})
     if not specs:
         return dict(tensors)
     _, rank, size = _model_axis(module.mesh)
-    return {name: shard_tensor(t, specs.get(name, REPLICATED), rank, size)
-            for name, t in tensors.items()}
+    resident = {name for name, t in module.state_dict().items() if not t.is_meta}
+    out = {}
+    for name, t in tensors.items():
+        kind = specs.get(name, REPLICATED)
+        if kind == STAGE and name not in resident:
+            out[name] = torch.empty(t.shape, dtype=t.dtype, device="meta")
+        else:
+            out[name] = shard_tensor(t, kind, rank, size)
+    return out
 
 
 @torch.no_grad()

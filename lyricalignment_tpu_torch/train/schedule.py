@@ -27,7 +27,10 @@ The arithmetic runs in float32 with ``torch._foreach_*`` ops, one list per
 group. Under tensor parallelism (``parallel.mesh``) each rank updates its
 own shard; the clip's norm is the full gradient's: the sharded parameters'
 squared sums are all-reduced over the model group and the replicated ones
-(LayerNorms, row-parallel biases, the GRU head) counted once.
+(LayerNorms, row-parallel biases, the GRU head) counted once. Under
+pipeline parallelism each rank updates its stage's blocks and the
+replicated rest, and the stage-owned parameters count as sharded: each is
+whole on one rank of the group.
 """
 
 from __future__ import annotations
@@ -87,7 +90,8 @@ class OptState:
 
     @classmethod
     def from_state_dict(cls, d: Dict, device=None) -> "OptState":
-        to = lambda m: {k: v.to(device) for k, v in m.items()}
+        # a pipelined model's other stages keep their moments on ``meta``
+        to = lambda m: {k: v if v.is_meta else v.to(device) for k, v in m.items()}
         return cls(count=int(d["count"]), mu=to(d["mu"]), nu=to(d["nu"]))
 
 
@@ -106,8 +110,8 @@ class AdamWChain:
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.mu_dtype = mu_dtype
-        # tensor parallelism: the model group and the names of the
-        # parameters sharded over it
+        # tensor or pipeline parallelism: the model group and the names of
+        # the parameters sharded (or stage-owned) over it
         self.norm_group = norm_group
         self.sharded = frozenset(sharded)
 

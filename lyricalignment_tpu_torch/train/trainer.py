@@ -21,7 +21,11 @@ each rank draws the global micro-batch's dropout mask and takes its rows,
 and the accumulated gradients are summed over the data group, so the
 meshed step equals the unsharded one. Tensor parallelism lives in the
 sharded model itself (``models/whisper.py``) and in the clip's norm
-(``train/schedule.py``).
+(``train/schedule.py``). Pipeline parallelism comes in through
+``encode_fn`` / ``decode_fn`` (``parallel.pipeline``): each data rank
+pipelines its rows, a rank updates the parameters it holds (its stage's
+blocks and the replicated rest), and the stage-owned gradients are summed
+over the data group only.
 """
 
 from __future__ import annotations
@@ -89,18 +93,22 @@ class TrainState:
     step: int = 0
 
     def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.model.named_parameters())
+        """The parameters this rank holds (a pipelined model's other stages
+        sit on the ``meta`` device)."""
+        return {n: p for n, p in self.model.named_parameters() if not p.is_meta}
 
 
 def init_train_state(model: AlignModel, tcfg: TrainConfig) -> Tuple[TrainState, AdamWChain]:
     """Optimizer state of ``model``'s parameters (its rank's shards, once
-    ``parallel.mesh.shard_align_params`` has cut it) and the AdamW chain."""
+    ``parallel.mesh.shard_align_params`` has cut it; the moments of a
+    pipelined model's other stages on the ``meta`` device, so that every
+    rank's state has the same names) and the AdamW chain."""
     labels = param_group_labels(model.named_parameters(), freeze_encoder=tcfg.freeze_encoder)
     tx = make_optimizer(labels, head_lr=tcfg.head_lr, backbone_lr=tcfg.backbone_lr,
                         weight_decay=tcfg.weight_decay, warmup_steps=tcfg.warmup_steps,
                         total_steps=tcfg.total_steps, max_grad_norm=tcfg.max_grad_norm,
                         mu_dtype=tcfg.adam_mu_dtype, norm_group=model_group(model),
-                        sharded=getattr(model, "tp_specs", {}))
+                        sharded=getattr(model, "shard_specs", {}))
     return TrainState(model, tx.init(dict(model.named_parameters()))), tx
 
 
@@ -121,6 +129,8 @@ def to_device(batch: Dict, device) -> Dict:
 def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
                      generator: Optional[torch.Generator], data_group=None,
                      dropout_rows: Optional[Tuple[int, int]] = None,
+                     encode_fn: Optional[Callable] = None,
+                     decode_fn: Optional[Callable] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss composition of the reference's ``train_step`` body
     (`train_multitask.py:250-325`) on one batch of tensors on the model's
@@ -132,14 +142,16 @@ def multitask_losses(model: AlignModel, tcfg: TrainConfig, batch: Dict,
     ``data_group``: the batch is a data rank's rows of ``dropout_rows``
     (start, total); each loss is this rank's share of the global group
     mean (its sum over the global count), so the ranks' losses sum to the
-    unsharded ones."""
+    unsharded ones. ``encode_fn`` / ``decode_fn`` go to
+    ``forward_from_audio``."""
     mcfg = model.cfg
     fused = tcfg.fused_losses and mcfg.train_alignment
     align_out, trans_logits = forward_from_audio(
         model, batch["audio"],
         y_in=batch["decoder_input"] if mcfg.train_transcript else None,
         trim_to_input_length=False, generator=generator, remat=tcfg.remat,
-        align_head_output="hidden" if fused else "logits", dropout_rows=dropout_rows)
+        align_head_output="hidden" if fused else "logits", dropout_rows=dropout_rows,
+        encode_fn=encode_fn, decode_fn=decode_fn)
     grp = data_group
 
     align_mask = batch["has_alignment"].bool()
@@ -182,13 +194,18 @@ def micro_seed(seed: int, step: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, step, index]).generate_state(1)[0])
 
 
-def make_train_step(tcfg: TrainConfig, tx: AdamWChain, mesh=None) -> Callable:
+def make_train_step(tcfg: TrainConfig, tx: AdamWChain, mesh=None,
+                    encode_fn: Optional[Callable] = None,
+                    decode_fn: Optional[Callable] = None) -> Callable:
     """The update. ``stacked`` leaves are [accum, B, ...] (numpy or
     tensors); returns (state, mean losses over the micro-batches as 0-d
     tensors). Under ``mesh`` the stacked batch is the global one: each rank
     takes its data rank's rows, and the gradients the optimizer gets and
     the losses returned are summed over the data group (the unsharded
-    step's)."""
+    step's). ``encode_fn`` / ``decode_fn`` replace the encoder and the
+    teacher-forced decoder in every micro-batch (JAX ``make_train_step``'s;
+    ``parallel.pipeline.make_pipeline_encode_fn`` / ``make_pipeline_logits_fn``
+    for a pipelined step with both halves staged)."""
     accum = tcfg.accum_grad_steps
     acc_dtype = tcfg.grad_accum_dtype
     explicit = acc_dtype not in (None, torch.float32)
@@ -212,7 +229,8 @@ def make_train_step(tcfg: TrainConfig, tx: AdamWChain, mesh=None) -> Callable:
                 micro = {k: rows.shard(v) for k, v in micro.items()}
             micro = to_device(micro, device)
             gen = torch.Generator(device=device).manual_seed(micro_seed(seed, state.step, i))
-            total, losses = multitask_losses(model, tcfg, micro, gen, data_group, dropout_rows)
+            total, losses = multitask_losses(model, tcfg, micro, gen, data_group, dropout_rows,
+                                             encode_fn, decode_fn)
             total.backward()
             if explicit:
                 # a + g.astype(acc_dtype), as the JAX scan accumulates
@@ -244,13 +262,15 @@ def make_train_step(tcfg: TrainConfig, tx: AdamWChain, mesh=None) -> Callable:
     return train_step
 
 
-def make_eval_step(tcfg: TrainConfig) -> Callable:
+def make_eval_step(tcfg: TrainConfig, encode_fn: Optional[Callable] = None,
+                   decode_fn: Optional[Callable] = None) -> Callable:
     """Losses of one batch without dropout and without gradients."""
 
     @torch.no_grad()
     def eval_step(model: AlignModel, batch: Dict) -> Dict[str, torch.Tensor]:
         device = next(model.parameters()).device
-        return multitask_losses(model, tcfg, to_device(batch, device), generator=None)[1]
+        return multitask_losses(model, tcfg, to_device(batch, device), generator=None,
+                                encode_fn=encode_fn, decode_fn=decode_fn)[1]
 
     return eval_step
 

@@ -30,7 +30,9 @@ need = {"api", "cli.inference_transcript", "cli.evaluate_transcript", "decode.be
         "decode.longform", "decode.timestamps", "decode.transcribe", "text.normalize",
         "text.heteronyms", "utils.metrics", "models.convert", "cli.convert_checkpoint",
         "cli.serve", "cli.inference_alignment_nogt", "cli.postprocess", "data.native_loader",
-        "ops.ctc", "utils.observability", "train.losses", "parallel", "parallel.mesh"}
+        "ops.ctc", "utils.observability", "train.losses", "parallel", "parallel.mesh",
+        "parallel.pipeline", "prep", "prep.get_pronunce_table", "prep.mix_with_musdb",
+        "prep.replace_path", "prep.separate_vocals"}
 missing = {n for n in need if pkg.__name__ + "." + n not in names}
 assert not missing, missing
 from lyricalignment_tpu_torch.api import LyricAligner

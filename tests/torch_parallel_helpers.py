@@ -129,7 +129,7 @@ def mesh_checks(rank, world, p):
         model = align_model(cfg, sd)
         pm.shard_align_params(model, mesh)
         out[key] = {
-            "specs": dict(model.tp_specs),
+            "specs": dict(model.shard_specs),
             "shapes": {k: tuple(v.shape) for k, v in model.state_dict().items()},
             "heads": [b.attn.n_head for b in model.whisper_model.encoder.blocks],
             "vocab_start": model.whisper_model.decoder.vocab_start,
@@ -352,3 +352,199 @@ def train_cli(rank, world, p):
     with contextlib.redirect_stdout(buf):
         main(p["argv"])
     return buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_pipeline.py
+# ---------------------------------------------------------------------------
+
+def grads_of(module, mesh, prefix):
+    """The full gradients of ``module``'s parameters named ``prefix*`` on
+    every rank: a stage's gathered from its owner (``gather_tensors``), then
+    every entry summed over the data group."""
+    from lyricalignment_tpu_torch.parallel import mesh as pm
+
+    local = {n: torch.empty_like(p) if p.is_meta else
+             (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in module.named_parameters() if n.startswith(prefix)}
+    full = pm.gather_tensors(module, local)
+    for g in full.values():
+        dist.all_reduce(g, group=mesh.get_group(pm.DATA_AXIS))
+    return numpy_dict(full)
+
+
+def block_bytes(whisper, sides=("encoder", "decoder")):
+    """Bytes of the resident block parameters of a Whisper's ``sides``."""
+    return sum(p.numel() * p.element_size() for n, p in whisper.named_parameters()
+               if n.split(".")[0] in sides and n.split(".")[1] == "blocks" and not p.is_meta)
+
+
+def step_results(model, tcfg, stacked, seed, mesh=None, encode_fn=None, decode_fn=None,
+                 steps=1, state=None):
+    """``steps`` updates of ``make_train_step``: the last step's losses,
+    the clip's norm, the gradients it clipped (gathered, summed over the data
+    group by the step itself), the full parameters after, and the state."""
+    from lyricalignment_tpu_torch.parallel import mesh as pm
+    from lyricalignment_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    if state is None:
+        state, tx = init_train_state(model, tcfg)
+    else:
+        state, tx = state
+    seen = {}
+    update = tx.update
+
+    def spy(params, grads, opt_state):
+        seen["norm"] = float(tx.global_norm(grads))
+        local = {n: torch.empty_like(p) if p.is_meta else
+                 (grads[n] if grads.get(n) is not None else torch.zeros_like(p))
+                 for n, p in model.named_parameters()}
+        seen["grads"] = numpy_dict(pm.gather_tensors(model, local))
+        return update(params, grads, opt_state)
+
+    tx.update = spy
+    step = make_train_step(tcfg, tx, mesh, encode_fn, decode_fn)
+    for _ in range(steps):
+        _, losses = step(state, stacked, seed)
+    tx.update = update
+    return dict(seen, losses={k: float(v) for k, v in losses.items()},
+                after=numpy_dict(pm.gather_state_dict(model))), (state, tx)
+
+
+def staged_align_model(cfg, sd, mesh):
+    """An AlignModel with both halves staged over ``mesh``."""
+    from lyricalignment_tpu_torch.parallel import mesh as pm
+    from lyricalignment_tpu_torch.parallel import pipeline as pp
+
+    model = align_model(cfg, sd)
+    pm.shard_align_params(model, mesh, tp=False)
+    return pp.stage_align_params(model, mesh, ("encoder", "decoder"))
+
+
+def pipe_train(p, mesh, tmp=None):
+    """The pipelined train step of ``p["train"]`` on ``mesh`` with both
+    halves staged; with ``tmp``, its checkpoint is written there, restored
+    onto a freshly staged model and trained one more step."""
+    from lyricalignment_tpu_torch.parallel import pipeline as pp
+    from lyricalignment_tpu_torch.train.checkpoints import restore_train_state, save_train_state
+    from lyricalignment_tpu_torch.train.trainer import TrainConfig, init_train_state
+
+    cfg, sd, tcfg_kw, stacked, seed = p["train"]
+    tcfg = TrainConfig(**tcfg_kw)
+    fns = (pp.make_pipeline_encode_fn(mesh, 2), pp.make_pipeline_logits_fn(mesh, 2))
+    model = staged_align_model(cfg, sd, mesh)
+    out, state = step_results(model, tcfg, stacked, seed, mesh, *fns)
+    out["bytes"] = block_bytes(model.whisper_model)
+    if tmp is not None:
+        save_train_state(os.path.join(tmp, "last_model"), state[0])
+        dist.barrier()
+        model = staged_align_model(cfg, sd, mesh)
+        resumed = init_train_state(model, tcfg)
+        restore_train_state(os.path.join(tmp, "last_model"), resumed[0])
+        out["resumed_step"] = resumed[0].step
+        out["second"], _ = step_results(model, tcfg, stacked, seed, mesh, *fns, state=resumed)
+    return out
+
+
+def _encoder_cases(p, mesh, rows, out, tag):
+    """The pipelined encoder forward (n_micro 1 and 2) and the gradients of
+    sum(y ** 2) with and without remat on ``mesh``."""
+    from lyricalignment_tpu_torch.parallel import pipeline as pp
+
+    wcfg, sd, mel = p["enc"]
+    mel = torch.tensor(rows.shard(mel))
+    model = whisper_model(wcfg, sd)
+    pp.stage_whisper(model, mesh)
+    with torch.no_grad():
+        for n_micro in (1, 2):
+            out[f"{tag}_m{n_micro}"] = pp.pipeline_encode_audio(model, mel, mesh,
+                                                                n_micro).numpy()
+    for remat in (False, True):
+        model = whisper_model(wcfg, sd)
+        pp.stage_whisper(model, mesh)
+        (pp.pipeline_encode_audio(model, mel, mesh, 2, remat=remat) ** 2).sum().backward()
+        out[f"{tag}_grads_remat{remat}"] = grads_of(model, mesh, "encoder.")
+
+
+def _decoder_cases(p, mesh, rows, out, tag):
+    """The pipelined decoder's logits, and the gradients of mean(logits **
+    2) over the global batch wrt the parameters and xa, with and without
+    remat."""
+    from lyricalignment_tpu_torch.parallel import pipeline as pp
+
+    wcfg, sd, tokens, xa = p["dec"]
+    n_total = tokens.shape[0] * tokens.shape[1] * wcfg.n_vocab
+    for remat in (False, True):
+        model = whisper_model(wcfg, sd)
+        pp.stage_whisper(model, mesh, ("decoder",))
+        a = torch.tensor(rows.shard(xa), requires_grad=True)
+        logits = pp.pipeline_decoder_logits(model, torch.tensor(rows.shard(tokens)), a, mesh, 2,
+                                            remat=remat)
+        ((logits ** 2).sum() / n_total).backward()
+        out[f"{tag}_logits"] = logits.detach().numpy()
+        out[f"{tag}_grads_remat{remat}"] = grads_of(model, mesh, "decoder.")
+        out[f"{tag}_dxa_remat{remat}"] = a.grad.numpy()
+
+
+def pipe_checks_world4(rank, world, p):
+    """Four ranks: DP2 x PP2 (encoder, pre-stacked blocks, decoder, the
+    train step with both halves staged, the alignment CLI with an even and
+    an odd local batch), a pure pipe mesh of 4 (encoder), and the
+    refusals."""
+    from lyricalignment_tpu_torch.models.whisper import encode_audio
+    from lyricalignment_tpu_torch.parallel import mesh as pm
+    from lyricalignment_tpu_torch.parallel import pipeline as pp
+
+    out = {}
+    mesh = pm.make_mesh(data=2, model=2)
+    rows = pm.batch_sharding(mesh)
+    _encoder_cases(p, mesh, rows, out, "dp2pp2")
+    wcfg, sd, mel = p["enc"]
+    full = whisper_model(wcfg, sd)
+    stacked = pp.place_pipeline_params(pp.stack_encoder_blocks(full.encoder.blocks, 2), mesh)
+    with torch.no_grad():
+        out["prestacked"] = pp.pipeline_encode_audio(full, torch.tensor(rows.shard(mel)), mesh,
+                                                     2, stacked=stacked).numpy()
+    _decoder_cases(p, mesh, rows, out, "dec_dp2pp2")
+    out["train"] = pipe_train(p, mesh)
+
+    acfg, asd, wavs = p["align"]
+    out["align"] = align_segments(align_model(acfg, asd), wavs, mesh_data=2, mesh_pipe=2)
+    out["align_odd"] = align_segments(align_model(acfg, asd), wavs, batch_size=6, mesh_data=2,
+                                      mesh_pipe=2)
+
+    pure = pm.make_mesh(data=1, model=4)
+    _encoder_cases(p, pure, pm.batch_sharding(pure), out, "pp4")
+    model = whisper_model(wcfg, sd)
+    pp.stage_whisper(model, pure)
+    out["pp4_bytes"] = block_bytes(model, ("encoder",))
+
+    refusals = []
+    model = whisper_model(wcfg, sd)
+    pp.stage_whisper(model, mesh)
+    for call in (lambda: pp.pipeline_encode_audio(model, torch.tensor(mel[:3]), mesh, 2),
+                 lambda: encode_audio(model, torch.tensor(mel),
+                                      sequence_sharding=pm.sequence_sharding(mesh))):
+        try:
+            with torch.no_grad():
+                call()
+        except ValueError as exc:
+            refusals.append(str(exc))
+    out["refusals"] = refusals
+    return out
+
+
+def pipe_checks_world2(rank, world, p):
+    """Two ranks, a pure pipe mesh (the card's layout): the encoder with 2
+    layers a stage, the decoder, and the train step with both halves
+    staged, its checkpoint written, restored and trained a second step."""
+    from lyricalignment_tpu_torch.parallel import mesh as pm
+    from lyricalignment_tpu_torch.parallel import pipeline as pp
+
+    out = {}
+    mesh = pm.make_mesh(data=1, model=2)
+    rows = pm.batch_sharding(mesh)
+    _encoder_cases(p, mesh, rows, out, "pp2")
+    _decoder_cases(p, mesh, rows, out, "dec_pp2")
+    out["train"] = pipe_train(p, mesh, p["tmp"])
+    return out
