@@ -14,7 +14,9 @@ NVIDIA GPU (written for the H100, sm_90a):
    TFLOP/s, share of the bound and ptxas' register and spill line; for the
    row log-sum-exp its rate and share of both its bounds (float32 on the
    CUDA cores, the three TF32 products it issues on the tensor cores), two
-   runs' equal bits and ptxas' line; for the log-mel its share of the bound,
+   runs' equal bits and ptxas' line, and the pair with its backward at feat
+   766 (zero-padded to 768 by the wrappers) against the plain versions; for
+   the log-mel its share of the bound,
    its time beside the library call's and ptxas' line; for the Viterbi DP
    exact onsets and offsets and two runs' equal bits at the main path's
    shape and at 16 x 3000 frames x 128 labels, its chain floor (a one-warp
@@ -98,6 +100,16 @@ NVIDIA GPU (written for the H100, sm_90a):
    ``beam_search`` and ``greedy_decode`` of 8 windows (encode, prime and
    per-step ms, launches); the transcript and evaluation CLIs.
 
+   Phase "longform": ``transcribe_longform_batched`` at bench.py's
+   long-form operating point (whisper-medium bf16, 12 slots a group, beam
+   5, decode group 3, 64 new tokens, the quality gates off) on 36 songs of
+   90 s, 34 staged by ``prepare_longform_audio`` and 2 raw, with one group
+   and then two (a thread and a CUDA stream each): every song's result
+   identical between the two; each arm's audio-s/s, windows/s, the
+   device's idle share in a traced 2 s window and its launches (the
+   log-mel once a raw song, encoder attention once a layer a round); each
+   raw song loaded by the prefetch pool while still queued (G = 2).
+
 8. phase "serve", checkpoint interop and the JSONL service at whisper-medium
    (bf16, random weights from a seed): the backbone goes through
    ``la-convert export-hf`` then ``la-convert import-hf`` (seconds and bytes
@@ -128,7 +140,15 @@ NVIDIA GPU (written for the H100, sm_90a):
    (c) the same two processes, ``--mesh-data 2``: one whisper-tiny train step
        with its align and transcript samples on different ranks, losses rtol
        1e-4 of the single-process GPU step, every training kernel launched on
-       each rank.
+       each rank;
+   (d) three spawned processes over gloo, the sequence-parallel encode
+       (``encode_audio(sequence_sharding=...)``) of whisper-medium bf16 at B
+       = 4 x 1499 frames with both axes uneven (heads 6 / 5 / 5, frames 500
+       / 500 / 499): every rank's features equal, their rel-L2 to float32 on
+       the same weights at most 1.1x the single bf16 process's, 24
+       attention launches a rank, the all-to-alls' bytes printed; a tiny
+       float32 model with 2 heads (one rank holds none and launches
+       nothing) within 1e-5 of one process.
 
 10. phase "pipe", pipeline parallelism (``parallel/pipeline.py``): two
    spawned processes, the two stages, share the card over gloo (a send is
@@ -445,6 +465,31 @@ def phase_kernels(dev):
         f"{ptxas_report('lse.cu', 'row_lse_kernel')}")
     del h, w, b, ws, bs, got, ref
 
+    # a feature width the tensor maps cannot take (766, not a multiple of
+    # 4): the wrappers zero-pad h and w to 768, exact; the forward against
+    # the plain version, the backward against the plain version in float64
+    rows_h, feat = 3000, 766
+    h = torch.randn(rows_h, feat, device=dev, generator=g) * 0.5
+    w = (torch.rand(C_CTC - 2, feat, device=dev, generator=g) * 2 - 1) / math.sqrt(feat)
+    b = (torch.rand(C_CTC - 2, device=dev, generator=g) * 2 - 1) / math.sqrt(feat)
+    got = viterbi.row_lse(h, w, b)
+    ref = viterbi.row_lse_plain(h, w, b)
+    err = (got - ref).abs().max().item()
+    gout = torch.randn(rows_h, device=dev, generator=g)
+    grads = viterbi.row_lse_bwd(h, w, b, got, gout)
+    refs = viterbi.row_lse_bwd_plain(h.double(), w.double(), b.double(), got.double(),
+                                     gout.double())
+    rels = [rel_l2(x, y) for x, y in zip(grads, refs)]
+    log(f"[kernel] row_lse at feat {feat} (zero-padded to 768 by the wrappers), {rows_h} rows "
+        f"x {w.shape[0]} columns: max abs err {err:.2e} against the plain version "
+        f"(rtol 1e-5 / atol 1e-4); backward dh / dw / db rel-L2 against float64 "
+        f"{rels[0]:.2e} / {rels[1]:.2e} / {rels[2]:.2e} (<= 1e-5), shapes "
+        f"{[tuple(x.shape) for x in grads]}")
+    if not (bool(((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all()) and max(rels) <= 1e-5
+            and grads[0].shape == h.shape and grads[1].shape == w.shape):
+        raise AssertionError(f"row_lse at feat {feat} disagrees with its plain version")
+    del h, w, b, got, ref, gout, grads, refs
+
     # --- kernel 4: Viterbi DP, 16 x 1500 frames x 48 labels (K = 97), and
     # 16 x 3000 x 128 (K = 257: a 45 s clip at the default max_label_len,
     # whose backpointers go through the scratch)
@@ -688,22 +733,39 @@ def _device_trace(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    spans = _trace_spans(prof)
+    if not spans:
+        return None
+    return _busy_ms(spans), _by_name(spans)
+
+
+def _trace_spans(prof):
+    """(start us, end us, name) of each device kernel, copy and memset of a
+    finished profile, in start order."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e.get("name", "?")) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
-    if not spans:
-        return None
-    busy_us, end_us, by_name = 0.0, -math.inf, {}
-    for t0, t1, name in spans:  # union of the intervals: one stream, but be safe
+    return sorted((e["ts"], e["ts"] + e["dur"], e.get("name", "?")) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+
+
+def _busy_ms(spans) -> float:
+    """The union of the spans' intervals (streams may overlap), in ms."""
+    busy_us, end_us = 0.0, -math.inf
+    for t0, t1, _ in spans:
         busy_us += max(0.0, t1 - max(t0, end_us))
         end_us = max(end_us, t1)
+    return busy_us / 1e3
+
+
+def _by_name(spans) -> dict:
+    by_name = {}
+    for t0, t1, name in spans:
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (t1 - t0) / 1e3, n + 1)
-    return busy_us / 1e3, by_name
+    return by_name
 
 
 def phase_throughput(dev, model, card):
@@ -2364,6 +2426,180 @@ def phase_transcribe_cli(dev, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase "longform": the batched long-form loop's overlap groups and prefetch
+# ---------------------------------------------------------------------------
+
+# bench.py's long-form operating point (bench_longform): whisper-medium
+# bf16, beam 5, 12 slots a group, decode group 3, 64 new tokens, 90 s songs,
+# the quality gates off
+LF_SECONDS, LF_BATCH, LF_DECODE_GROUP, LF_BEAM, LF_MAX_NEW = 90.0, 12, 3, 5, 64
+LF_SONGS = 36          # more than G = 2's 24 slots: slots refill, the pool loads ahead
+# songs given raw (the rest staged): queued right behind G = 2's 24 slots, so
+# group 1's first turn puts them in the prefetch pool
+LF_RAW = (24, 25)
+LF_TRACE_AT, LF_TRACE_S = 8.0, 2.0   # a traced window of each arm: start, length (s)
+
+
+def _lf_arm(run, groups):
+    """One arm of phase "longform": ``run(groups)`` in a thread of its own
+    while this one traces ``LF_TRACE_S`` seconds of it from ``LF_TRACE_AT``
+    on. (results, wall s, device busy ms and span ms of the window or None)."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+
+    def go():
+        try:
+            out["results"] = run(groups)
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            out["error"] = exc
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=go)
+    worker.start()
+    worker.join(LF_TRACE_AT)
+    window = None
+    try:
+        if worker.is_alive():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                worker.join(LF_TRACE_S)
+            window = prof
+    except Exception as exc:  # noqa: BLE001 - CUPTI may be unavailable
+        log(f"[longform] trace not measured: {type(exc).__name__}: {exc}")
+    worker.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if "error" in out:
+        raise out["error"]
+    spans = _trace_spans(window) if window is not None else []
+    busy = (_busy_ms(spans), (spans[-1][1] - spans[0][0]) / 1e3) if spans else None
+    return out["results"], wall, busy
+
+
+def phase_longform(dev, card, tmp):
+    """``transcribe_longform_batched`` at bench.py's long-form operating
+    point, ``LF_SONGS`` songs of 90 s (all staged by
+    ``prepare_longform_audio`` but ``LF_RAW``), with one group (G = 1) and
+    then two (G = 2, a thread and a CUDA stream each) on the same songs:
+    (a) every song's text and segments identical between the arms; (b) each
+    arm's audio-s/s, the device's idle share in a traced window, and its
+    launches (the log-mel once a raw song, encoder attention once a layer
+    a round); (c) each raw song loaded by the prefetch pool: its log-mel
+    made while it was still queued, with window decodes between that and
+    its slot (G = 2). Returns the G = 2 arm's launches."""
+    import numpy as np
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.decode import longform
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS, bf16_resident
+    from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+
+    t0 = time.perf_counter()
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True, onepass_encoder=True)
+    with torch.device(dev):
+        align = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=64))
+    align.to(dev)
+    init_weights(align, torch.Generator(device=dev).manual_seed(0))
+    model = bf16_resident(align.whisper_model).eval()
+    del align
+    tok = WhisperTokenizer(bpe_path=_write_ranks(tmp))
+    rng = np.random.default_rng(90)
+    audios = [(rng.standard_normal(int(LF_SECONDS * 16000)) * 0.1).astype(np.float32)
+              for _ in range(LF_SONGS)]
+    songs = [a if i in LF_RAW else longform.prepare_longform_audio(a, wcfg.n_mels, device=dev)
+             for i, a in enumerate(audios)]
+    torch.cuda.synchronize()
+    log(f"[longform] whisper-medium bf16 built and {LF_SONGS - len(LF_RAW)} of {LF_SONGS} "
+        f"songs of {LF_SECONDS:.0f} s staged in {time.perf_counter() - t0:.1f} s")
+
+    # the loop's own steps, in the order they ran (any group's thread)
+    events = []
+    real = {name: getattr(longform, name) for name in
+            ("_prep_mel", "_new_song_state", "_window_decode", "_encode",
+             "_apply_window_result")}
+    raw_ids = {id(songs[i]): i for i in LF_RAW}
+
+    def watch(name, tag):
+        def call(*a, **kw):
+            if name == "_prep_mel":
+                if id(a[0]) in raw_ids:
+                    events.append(("load", raw_ids[id(a[0])]))
+            else:
+                events.append((tag, a[0] if name == "_new_song_state" else None))
+            return real[name](*a, **kw)
+        return call
+
+    def run(groups):
+        return longform.transcribe_longform_batched(
+            model, wcfg, songs, tok, batch_size=LF_BATCH, overlap_groups=groups,
+            decode_group=LF_DECODE_GROUP, beam_size=LF_BEAM, temperatures=(0.0,),
+            max_new_tokens=LF_MAX_NEW, compression_ratio_threshold=1e9,
+            logprob_threshold=-1e9, no_speech_threshold=2.0)
+
+    arms = {}
+    for name, tag in (("_prep_mel", "load"), ("_new_song_state", "take"),
+                      ("_window_decode", "decode"), ("_encode", "encode"),
+                      ("_apply_window_result", "window")):
+        setattr(longform, name, watch(name, tag))
+    try:
+        for groups in (1, 2):
+            events.clear()
+            kernels.reset_launch_counts()
+            results, wall, busy = _lf_arm(run, groups)
+            counts = dict(kernels.launches)
+            arms[groups] = (results, counts, list(events))
+            n_enc = sum(kind == "encode" for kind, _ in events)
+            n_win = sum(kind == "window" for kind, _ in events)
+            idle = ("not measured (the profiler recorded no device activity)" if busy is None
+                    else f"{1 - busy[0] / busy[1]:.3f} (device busy {busy[0]:.1f} ms of the "
+                         f"{busy[1]:.1f} ms its {LF_TRACE_S:.0f} s traced window spans, from "
+                         f"{LF_TRACE_AT:.0f} s in)")
+            log(f"[longform] G = {groups} x {LF_BATCH} slots, beam {LF_BEAM}, decode group "
+                f"{LF_DECODE_GROUP}, {LF_MAX_NEW} new tokens: {LF_SONGS} songs x "
+                f"{LF_SECONDS:.0f} s in {wall:.2f} s = "
+                f"{LF_SONGS * LF_SECONDS / wall:.1f} audio-s/s; {n_win} windows in {n_enc} "
+                f"rounds ({n_win / wall:.2f} windows/s); device idle share {idle}; launches "
+                f"{counts} on {card}")
+            want = {"la_log10_mel": len(LF_RAW), "la_bias_attention": wcfg.n_audio_layer * n_enc}
+            if counts != want:
+                raise AssertionError(f"G = {groups}: launches {counts}, expected {want}")
+            if len(results) != LF_SONGS or any(not r["segments"] for r in results):
+                raise AssertionError(f"G = {groups}: a song has no result or no segment")
+            for i in LF_RAW if groups == 2 else ():   # (c): loaded while queued
+                kinds = [kind for kind, _ in events]
+                load, take = events.index(("load", i)), events.index(("take", i))
+                if not (load < take and "decode" in kinds[load:take]):
+                    raise AssertionError(f"G = {groups}: raw song {i} did not go through "
+                                         f"the prefetch pool")
+    finally:
+        for name, fn in real.items():
+            setattr(longform, name, fn)
+    same = [a == b for a, b in zip(arms[1][0], arms[2][0])]
+    n_tok = sum(len(s["tokens"]) for r in arms[2][0] for s in r["segments"])
+    log(f"[longform] (a) G = 2 against G = 1: {sum(same)} of {LF_SONGS} songs identical "
+        f"(text, every segment's times, tokens and scores; {n_tok} tokens in "
+        f"{sum(len(r['segments']) for r in arms[2][0])} segments); (c) raw songs {LF_RAW}: "
+        f"each loaded once by the prefetch pool while queued")
+    if not all(same):
+        raise AssertionError(f"G = 2 differs from G = 1 on songs "
+                             f"{[i for i, ok in enumerate(same) if not ok]}")
+    del model, songs
+    torch.cuda.empty_cache()
+    return arms[2][1]
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: checkpoint interop and the JSONL service at whisper-medium
 # ---------------------------------------------------------------------------
 
@@ -2904,30 +3140,168 @@ def _mesh_rank(rank, tmp, device_type):
         json.dump(out, f)
 
 
-def _spawn_ranks(target, tmp, dev, name):
-    """Two processes of ``target(rank, tmp, device_type)`` (spawned after the
-    parent freed its models), each of which writes ``{name}_rank{rank}.json``;
-    killed if they outlast ``MESH_SPAWN_TIMEOUT``. Returns what they wrote
-    and the seconds from spawn to exit."""
+def _spawn_ranks(target, tmp, dev, name, n=2):
+    """``n`` processes of ``target(rank, tmp, device_type)`` (spawned after
+    the parent freed its models), each of which writes
+    ``{name}_rank{rank}.json``; killed if they outlast
+    ``MESH_SPAWN_TIMEOUT``. Returns what they wrote and the seconds from
+    spawn to exit."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(target, args=(tmp, dev.type), nprocs=2, join=False,
+    ctx = mp.start_processes(target, args=(tmp, dev.type), nprocs=n, join=False,
                              start_method="spawn")
     t0 = time.perf_counter()
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > MESH_SPAWN_TIMEOUT:
-                raise AssertionError(f"the two {name} processes did not end in "
+                raise AssertionError(f"the {n} {name} processes did not end in "
                                      f"{MESH_SPAWN_TIMEOUT} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
     outs = []
-    for rank in range(2):
+    for rank in range(n):
         with open(os.path.join(tmp, f"{name}_rank{rank}.json")) as f:
             outs.append(json.load(f))
     return outs, time.perf_counter() - t0
+
+
+# part (d): the sequence-parallel encode over three processes, both axes
+# uneven at whisper-medium (16 heads: 6 / 5 / 5; 1499 frames: 500 / 500 /
+# 499) and 2 heads of a tiny float32 model (1 / 1 / 0)
+MESH_SEQ_RANKS, MESH_SEQ_B, MESH_SEQ_MEL = 3, 4, 2998
+
+
+def _seq_mel(dev):
+    """Part (d)'s input: the log-mel of ``MESH_SEQ_B`` seeded clips of
+    ``MESH_SEQ_MEL`` frames (1499 after the stem)."""
+    import torch
+
+    from lyricalignment_tpu_torch.ops.mel import log_mel
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    return log_mel(torch.randn(MESH_SEQ_B, MESH_SEQ_MEL * 160, device=dev, generator=g) * 0.1)
+
+
+def _seq_exchange_bytes(b, t, heads, n_layer, m):
+    """Bytes the sequence-parallel encode's all-to-alls move between ranks
+    (each rank's own chunk stays): 4 a block (q, k, v to heads; the output
+    back), each chunk r -> j of B x T_r x H_j x 64 in bf16."""
+    from lyricalignment_tpu_torch.parallel.mesh import frame_split, head_split
+
+    runs, hs = frame_split(t, m), head_split(heads, m)
+    chunk = sum(b * runs[r] * hs[j] * 64 * 2 for r in range(m) for j in range(m) if r != j)
+    return 4 * n_layer * chunk
+
+
+def _mesh_seq_rank(rank, tmp, device_type):
+    """One of part (d)'s three processes on the card, over gloo: the
+    sequence-parallel encode of whisper-medium bf16 and of a tiny float32
+    model; writes ``seq_rank{rank}.json`` and the encodes."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv_seq", rank=rank,
+                            world_size=MESH_SEQ_RANKS)
+    try:
+        from lyricalignment_tpu_torch import kernels
+        from lyricalignment_tpu_torch.models.whisper import encode_audio
+        from lyricalignment_tpu_torch.parallel.mesh import make_mesh, sequence_sharding
+
+        if dev.type == "cuda":
+            kernels.library()
+        seq = sequence_sharding(make_mesh(1, MESH_SEQ_RANKS, dev.type))
+        out = {}
+        for name, model in (("medium", _medium_align_model(dev).whisper_model),
+                            ("tiny", _mesh_tiny_model(dev).whisper_model)):
+            with torch.inference_mode():
+                encode_audio(model, _seq_mel(dev), sequence_sharding=seq)  # first use
+                _sync(dev)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                enc = encode_audio(model, _seq_mel(dev), sequence_sharding=seq)
+                _sync(dev)
+            out[f"{name}_wall"] = time.perf_counter() - t0
+            out[f"{name}_counts"] = dict(kernels.launches)
+            torch.save(enc.cpu(), os.path.join(tmp, f"seq_{name}_rank{rank}.pt"))
+            del model, enc
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"seq_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh_sequence(dev, card, tmp):
+    """(d): the sequence-parallel encode over ``MESH_SEQ_RANKS`` processes
+    sharing the card over gloo (``all_to_all_single`` with uneven splits on
+    CUDA tensors), against one process: whisper-medium bf16 within 1.1x the
+    single bf16 process's rel-L2 from float32 on the same weights, every
+    rank's gathered features equal; the tiny float32 model within 1e-5
+    (rel-L2). Returns rank 0's launches of the medium encode."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+    from lyricalignment_tpu_torch.parallel.mesh import frame_split, head_split
+
+    refs = {}
+    with torch.inference_mode():
+        for name, kw in (("bf16", {}), ("f32", {"compute_dtype": torch.float32})):
+            model = _medium_align_model(dev, **kw).whisper_model
+            model.embed_audio(_seq_mel(dev))   # first use
+            _sync(dev)
+            t0 = time.perf_counter()
+            refs[name] = model.embed_audio(_seq_mel(dev))
+            _sync(dev)
+            refs[f"{name}_wall"] = time.perf_counter() - t0
+            del model
+        refs["tiny"] = _mesh_tiny_model(dev).whisper_model.embed_audio(_seq_mel(dev))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    outs, wall = _spawn_ranks(_mesh_seq_rank, tmp, dev, "seq", n=MESH_SEQ_RANKS)
+    medium = WHISPER_CONFIGS["medium"]
+    t = refs["bf16"].shape[1]
+    m = MESH_SEQ_RANKS
+    base32 = rel_l2(refs["bf16"], refs["f32"])
+    exchange = _seq_exchange_bytes(MESH_SEQ_B, t, medium.n_audio_head, medium.n_audio_layer, m)
+    gather = refs["bf16"].numel() * 2
+    log(f"[mesh-d] whisper-medium bf16, B = {MESH_SEQ_B} x {MESH_SEQ_MEL} mel frames ({t} "
+        f"after the stem) over {m} processes: frames {frame_split(t, m)}, heads "
+        f"{head_split(medium.n_audio_head, m)} a rank; the all-to-alls move "
+        f"{exchange / 1e6:.1f} MB an encode between ranks ({4 * medium.n_audio_layer} of "
+        f"them), the features' gather is an all-reduce of {gather / 1e6:.2f} MB; one "
+        f"process: bf16 {refs['bf16_wall'] * 1e3:.1f} ms, float32 "
+        f"{refs['f32_wall'] * 1e3:.1f} ms")
+    first = None
+    for rank, out in enumerate(outs):
+        enc = torch.load(os.path.join(tmp, f"seq_medium_rank{rank}.pt")).to(dev)
+        tiny = torch.load(os.path.join(tmp, f"seq_tiny_rank{rank}.pt")).to(dev)
+        rel32, rel16 = rel_l2(enc, refs["f32"]), rel_l2(enc, refs["bf16"])
+        rel_tiny = rel_l2(tiny, refs["tiny"])
+        equal = first is None or torch.equal(enc, first)
+        first = enc if first is None else first
+        log(f"[mesh-d] rank {rank}: encode {out['medium_wall'] * 1e3:.1f} ms over gloo; "
+            f"rel-L2 against float32 on the same weights {rel32:.3e} (the single bf16 "
+            f"process's {base32:.3e}; <= 1.1x), against the single bf16 process {rel16:.3e}; "
+            f"equal to rank 0's: {equal}; launches {out['medium_counts']}; tiny float32 "
+            f"model (heads {head_split(2, m)}): rel-L2 {rel_tiny:.2e} against one process "
+            f"(<= 1e-5), launches {out['tiny_counts']}")
+        want = {"la_log10_mel": 1, "la_bias_attention": medium.n_audio_layer}
+        want_tiny = {"la_log10_mel": 1}
+        if head_split(2, m)[rank]:
+            want_tiny["la_bias_attention"] = 2
+        if out["medium_counts"] != want or out["tiny_counts"] != want_tiny:
+            raise AssertionError(f"(d) rank {rank}: launches {out['medium_counts']} / "
+                                 f"{out['tiny_counts']}, expected {want} / {want_tiny}")
+        if rel32 > 1.1 * base32 or rel_tiny > 1e-5 or not equal or enc.shape != refs["bf16"].shape:
+            raise AssertionError(f"(d) rank {rank}: the sequence-parallel encode is off")
+    log(f"[mesh-d] {m} processes on {card}, {wall:.1f} s from spawn to exit")
+    return outs[0]["medium_counts"]
 
 
 def _check_shared_card(dev, card, tag):
@@ -3009,7 +3383,7 @@ def phase_mesh(dev, card, tmp):
             if out["c_counts"].get(name, 0) <= 0:
                 raise AssertionError(f"(c) rank {rank}: kernel {name} was not launched")
     log(f"[mesh] parts (b) and (c): two processes on {card}, {wall:.1f} s from spawn to exit")
-    return outs[0]["b_counts"], outs[0]["c_counts"]
+    return outs[0]["b_counts"], outs[0]["c_counts"], phase_mesh_sequence(dev, card, tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -3432,13 +3806,18 @@ def main() -> int:
 
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
+            longform_counts = phase_longform(dev, card, tmp)
+        log(f"[longform] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
             serve_counts = phase_serve(dev, card, tmp)
         log(f"[serve] phase passed in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
-            mesh_tp_counts, mesh_dp_counts = phase_mesh(dev, card, tmp)
+            mesh_tp_counts, mesh_dp_counts, mesh_seq_counts = phase_mesh(dev, card, tmp)
         log(f"[mesh] phase passed in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -3485,6 +3864,10 @@ def main() -> int:
         # (b) the whisper-medium train step with both halves staged
         row["mesh_pipe2_rank_launches"] = pipe_counts.get(launcher, 0)
         row["mesh_pipe2_train_rank_launches"] = pipe_train_counts.get(launcher, 0)
+        # phase "longform": the G = 2 arm (36 songs of 90 s, two raw); phase
+        # "mesh" (d): rank 0's sequence-parallel medium encode
+        row["longform_batched_launches"] = longform_counts.get(launcher, 0)
+        row["mesh_seq3_rank_launches"] = mesh_seq_counts.get(launcher, 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

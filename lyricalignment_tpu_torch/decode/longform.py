@@ -30,6 +30,8 @@ Deviations from whisper, as in the JAX package (both strictly safer):
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -368,7 +370,11 @@ def _prep_mel(audio, n_mels: int = 80, device=None) -> Tuple[torch.Tensor, int]:
     padded_len = ((len(audio) + N_SAMPLES) + N_SAMPLES - 1) // N_SAMPLES * N_SAMPLES
     padded = np.zeros((padded_len,), np.float32)
     padded[: len(audio)] = audio
-    return log_mel(torch.from_numpy(padded).to(device), n_mels=n_mels), content_frames
+    host = torch.from_numpy(padded)
+    if device is not None and torch.device(device).type == "cuda":
+        host = host.pin_memory()   # an asynchronous upload on the current stream
+    return (log_mel(host.to(device, non_blocking=True), n_mels=n_mels),
+            content_frames)
 
 
 def prepare_longform_audio(audio: np.ndarray, n_mels: int = 80,
@@ -378,6 +384,59 @@ def prepare_longform_audio(audio: np.ndarray, n_mels: int = 80,
     anywhere an audio array is. Pass the model's ``cfg.n_mels`` for
     128-band (large-v3 family) backbones."""
     return _prep_mel(audio, n_mels, torch.device(device))
+
+
+class _Turns:
+    """Round-robin turns of the live groups of the batched loop, in group
+    order: JAX's host loop (``process`` of each group with a pending attempt
+    in turn). Whatever touches the shared song state (the queue, the
+    prefetch pool, the results) runs in the group's turn, so songs reach
+    slots in JAX's order whatever the threads' timing; the decodes between
+    turns run at once. A failed group stops every other at its next turn."""
+
+    def __init__(self, n: int):
+        self._cond = threading.Condition()
+        self._order = list(range(n))
+        self._at = 0
+        self.error: Optional[BaseException] = None
+
+    def wait(self, gi: int) -> None:
+        with self._cond:
+            self._cond.wait_for(lambda: self.error is not None
+                                or self._order[self._at] == gi)
+            if self.error is not None:
+                raise _Stopped
+
+    def pass_on(self, stay: bool) -> None:
+        """End the current turn; ``stay`` False takes its group out."""
+        with self._cond:
+            if stay:
+                self._at += 1
+            else:
+                self._order.pop(self._at)
+            self._at = self._at % len(self._order) if self._order else 0
+            self._cond.notify_all()
+
+    def fail(self, exc: BaseException) -> None:
+        with self._cond:
+            if self.error is None:
+                self.error = exc
+            self._cond.notify_all()
+
+
+class _Stopped(Exception):
+    """Raised in a group whose call failed in another group."""
+
+
+def _stream_scope(dev: torch.device, stream) -> contextlib.ExitStack:
+    """Gradients off and, on CUDA, ``dev`` and ``stream`` current: each is
+    per thread, and the kernels launch on the thread's current stream."""
+    scope = contextlib.ExitStack()
+    scope.enter_context(torch.no_grad())
+    if dev.type == "cuda":
+        scope.enter_context(torch.cuda.device(dev))
+        scope.enter_context(torch.cuda.stream(stream))
+    return scope
 
 
 def transcribe_longform_batched(
@@ -400,6 +459,7 @@ def transcribe_longform_batched(
     no_speech_threshold: float = NO_SPEECH_THRESHOLD,
     seed: int = 0,
     verbose: bool = False,
+    overlap_groups: int = 1,
     decode_group: int = 1,
 ) -> List[Dict]:
     """Transcribe many long songs in lockstep: one batched decode per round.
@@ -411,12 +471,24 @@ def transcribe_longform_batched(
     and quality-gate bookkeeping per row on the host. A song that finishes
     hands its slot to the next queued song (continuous batching).
 
+    ``overlap_groups=G`` runs G independent lockstep groups of
+    ``batch_size`` slots each, every group in a thread of its own with a
+    CUDA stream of its own: while one group waits on its decode, the others
+    launch theirs and do their host bookkeeping (each decode loop reads a
+    flag back every few steps, so one host thread would run the groups one
+    after another). Songs reach the groups in JAX's round-robin order
+    (:class:`_Turns`), and a pool loads the next ``2 G`` queued songs'
+    log-mels ahead, on a side stream from pinned memory. Per-song results
+    are identical for any G at the deterministic temperatures (rows are
+    batch-independent); G = 1 is the same code with one group.
+
     Per-row semantics are token-for-token those of ``transcribe_longform``
     for the deterministic temperatures; sampled retries (temperature > 0)
-    draw from a batch-shared generator seeded on (seed, temperature, round)
-    instead of the single-song (seed, temperature, seek), so individual
-    sampled retries may differ.
+    draw from a batch-shared generator seeded on (seed, temperature, round
+    x G + group), JAX's key, instead of the single-song (seed, temperature,
+    seek), so individual sampled retries may differ.
 
+    An error in any group fails the call, after every group has stopped.
     Returns one result dict per input song, in input order.
     """
     eot = tokenizer.eot
@@ -430,79 +502,145 @@ def transcribe_longform_batched(
 
     n_songs = len(audios)
     bsz = batch_size if batch_size is not None else min(8, max(n_songs, 1))
+    n_groups = max(1, overlap_groups)
     results: List[Optional[Dict]] = [None] * n_songs
     queue = list(range(n_songs))
+    cuda = dev.type == "cuda"
+    caller = torch.cuda.current_stream(dev) if cuda else None
+    side = torch.cuda.Stream(device=dev) if cuda else None
+
+    # the prefetch pool: idx -> (mel, content frames, event the mel is
+    # ready at); read and written in the groups' turns only
+    prefetched: Dict[int, tuple] = {}
+    n_prefetch = 2 * n_groups
+
+    def _load(idx: int) -> tuple:
+        with _stream_scope(dev, side):
+            mel, frames = _prep_mel(audios[idx], cfg.n_mels, dev)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(side)
+        return mel, frames, ready
+
+    def _prefetch() -> None:
+        for idx in queue[:n_prefetch]:
+            if idx not in prefetched:
+                prefetched[idx] = _load(idx)
 
     def _take_next() -> Optional[Dict]:
         if not queue:
             return None
         idx = queue.pop(0)
-        mel, frames = _prep_mel(audios[idx], cfg.n_mels, dev)
+        mel, frames, ready = prefetched.pop(idx, None) or _load(idx)
+        if ready is not None:   # made on the side stream, used on this one
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(ready)
+            mel.record_stream(stream)
         return _new_song_state(idx, mel, frames)
 
-    zero_win = torch.zeros((cfg.n_mels, N_FRAMES), dtype=torch.float32, device=dev)
-    slots: List[Optional[Dict]] = [_take_next() for _ in range(bsz)]
-    round_idx = 0
-    while any(st is not None for st in slots):
-        # Prepare the round: windows, conditioned prompts, one encode.
-        wins: List[torch.Tensor] = [zero_win] * bsz
-        seg_sizes = [0] * bsz
-        buf = np.full((bsz, p_max), eot, np.int64)
-        lengths = np.full((bsz,), len(sot_seq), np.int64)
-        sots = np.zeros((bsz,), np.int64)
-        for i, st in enumerate(slots):
-            if st is None:
-                buf[i, : len(sot_seq)] = sot_seq
-                continue
-            seg_sizes[i] = min(N_FRAMES, st["frames"] - st["seek"])
-            wins[i] = _gather_window(st["mel"], st["seek"])
-            ptoks = _conditioned_prompt(tokenizer, sot_seq, st,
-                                        condition_on_previous_text, max_prev)
-            buf[i, : len(ptoks)] = ptoks
-            lengths[i] = len(ptoks)
-            sots[i] = len(ptoks) - len(sot_seq)
-        xa = _encode(model, cfg, torch.stack(wins))
-        prompt = torch.from_numpy(buf).to(dev)
-        length = torch.from_numpy(lengths).to(dev)
-        sot_index = torch.from_numpy(sots).to(dev)
+    turns = _Turns(n_groups)
 
-        # The fallback ladder: each temperature decodes the whole batch;
-        # a row keeps the first candidate that passes the gates.
-        row_result: List[Optional[Dict]] = [None] * bsz
-        row_ns: List[Optional[float]] = [None] * bsz
-        settled = [st is None for st in slots]
-        for temperature in temperatures:
-            generator = None
-            if temperature > 0.0:
-                generator = torch.Generator(device=dev).manual_seed(
-                    seed + int(temperature * 10) + round_idx)
-            tok_np, scores, ns_np = _window_decode(
-                model, cfg, xa, prompt, length, sot_index, temperature, generator,
-                beam_size, max_new_tokens, eot, no_speech, suppress_ids,
-                begin_suppress_ids, ts_begin, length_penalty, patience, decode_group)
-            for i, st in enumerate(slots):
-                if st is None or settled[i]:
-                    continue
-                if row_ns[i] is None:
-                    row_ns[i] = float(ns_np[i])
-                row_result[i] = _candidate(
-                    tokenizer, tok_np[i], float(scores[i]), temperature, eot)
-                settled[i] = _settles(
-                    row_result[i], row_ns[i], compression_ratio_threshold,
-                    logprob_threshold, no_speech_threshold)
-            if all(settled):
-                break
+    def _group(gi: int, stream) -> None:
+        """One lockstep group of ``bsz`` slots, from its first songs to its
+        last; its fallback ladder runs one temperature a turn."""
+        with _stream_scope(dev, stream):
+            if cuda:   # the model and any staged mels come from the caller's stream
+                stream.wait_stream(caller)
+            zero_win = torch.zeros((cfg.n_mels, N_FRAMES), dtype=torch.float32, device=dev)
+            turns.wait(gi)
+            slots: List[Optional[Dict]] = [_take_next() for _ in range(bsz)]
+            _prefetch()
+            round_idx = 0
+            turns.pass_on(any(st is not None for st in slots))
+            while any(st is not None for st in slots):
+                # Prepare the round: windows, conditioned prompts, one encode.
+                wins: List[torch.Tensor] = [zero_win] * bsz
+                seg_sizes = [0] * bsz
+                buf = np.full((bsz, p_max), eot, np.int64)
+                lengths = np.full((bsz,), len(sot_seq), np.int64)
+                sots = np.zeros((bsz,), np.int64)
+                for i, st in enumerate(slots):
+                    if st is None:
+                        buf[i, : len(sot_seq)] = sot_seq
+                        continue
+                    seg_sizes[i] = min(N_FRAMES, st["frames"] - st["seek"])
+                    wins[i] = _gather_window(st["mel"], st["seek"])
+                    ptoks = _conditioned_prompt(tokenizer, sot_seq, st,
+                                                condition_on_previous_text, max_prev)
+                    buf[i, : len(ptoks)] = ptoks
+                    lengths[i] = len(ptoks)
+                    sots[i] = len(ptoks) - len(sot_seq)
+                xa = _encode(model, cfg, torch.stack(wins))
+                prompt = torch.from_numpy(buf).to(dev)
+                length = torch.from_numpy(lengths).to(dev)
+                sot_index = torch.from_numpy(sots).to(dev)
 
-        # Bookkeeping; a finished song hands its slot to the next queued one.
-        for i, st in enumerate(slots):
-            if st is None:
-                continue
-            _apply_window_result(
-                st, row_result[i], row_ns[i], seg_sizes[i], tokenizer, ts_begin,
-                eot, logprob_threshold, no_speech_threshold,
-                condition_on_previous_text, verbose, tag=f"[song {st['ri']}] ")
-            if st["seek"] >= st["frames"]:
-                results[st["ri"]] = _final_result(st, tokenizer)
-                slots[i] = _take_next()
-        round_idx += 1
+                # The fallback ladder: each temperature decodes the whole
+                # batch; a row keeps the first candidate that passes the gates.
+                row_result: List[Optional[Dict]] = [None] * bsz
+                row_ns: List[Optional[float]] = [None] * bsz
+                settled = [st is None for st in slots]
+                for ti, temperature in enumerate(temperatures):
+                    generator = None
+                    if temperature > 0.0:
+                        generator = torch.Generator(device=dev).manual_seed(
+                            seed + int(temperature * 10) + round_idx * n_groups + gi)
+                    tok_np, scores, ns_np = _window_decode(
+                        model, cfg, xa, prompt, length, sot_index, temperature, generator,
+                        beam_size, max_new_tokens, eot, no_speech, suppress_ids,
+                        begin_suppress_ids, ts_begin, length_penalty, patience, decode_group)
+                    for i, st in enumerate(slots):
+                        if st is None or settled[i]:
+                            continue
+                        if row_ns[i] is None:
+                            row_ns[i] = float(ns_np[i])
+                        row_result[i] = _candidate(
+                            tokenizer, tok_np[i], float(scores[i]), temperature, eot)
+                        settled[i] = _settles(
+                            row_result[i], row_ns[i], compression_ratio_threshold,
+                            logprob_threshold, no_speech_threshold)
+                    if all(settled) or ti + 1 == len(temperatures):
+                        break
+                    turns.wait(gi)
+                    turns.pass_on(True)
+
+                # Bookkeeping, in this group's turn; a finished song hands
+                # its slot to the next queued one.
+                turns.wait(gi)
+                for i, st in enumerate(slots):
+                    if st is None:
+                        continue
+                    _apply_window_result(
+                        st, row_result[i], row_ns[i], seg_sizes[i], tokenizer, ts_begin,
+                        eot, logprob_threshold, no_speech_threshold,
+                        condition_on_previous_text, verbose, tag=f"[song {st['ri']}] ")
+                    if st["seek"] >= st["frames"]:
+                        results[st["ri"]] = _final_result(st, tokenizer)
+                        slots[i] = _take_next()
+                _prefetch()
+                round_idx += 1
+                turns.pass_on(any(st is not None for st in slots))
+
+    def _run(gi: int, stream) -> None:
+        try:
+            _group(gi, stream)
+        except _Stopped:
+            pass
+        except BaseException as exc:  # noqa: B902 (handed to the caller below)
+            turns.fail(exc)
+
+    streams = [torch.cuda.Stream(device=dev) if cuda else None for _ in range(n_groups)]
+    threads = [threading.Thread(target=_run, args=(gi, streams[gi]),
+                                name=f"longform-group-{gi}", daemon=True)
+               for gi in range(n_groups)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if cuda:
+        for stream in streams + [side]:
+            caller.wait_stream(stream)
+    if turns.error is not None:
+        raise turns.error
     return results

@@ -82,12 +82,15 @@ SIGNATURES: Dict[str, list] = {
 launches: Counter = Counter()
 
 _lock = threading.Lock()
+# the counts' own lock: threads launch at once (the long-form loop's groups)
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
-    launches.clear()
+    with _count_lock:
+        launches.clear()
 
 
 def _nvcc() -> str:
@@ -199,4 +202,5 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.la_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1

@@ -54,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -69,6 +70,7 @@ from lyricalignment_tpu_torch.ops.attention import onepass_self_attention, self_
 from lyricalignment_tpu_torch.parallel.mesh import (
     all_reduce_max,
     copy_to_model,
+    frame_split,
     gather_dim,
     heads_to_seq,
     reduce_from_model,
@@ -210,15 +212,33 @@ def _linear_int8(lin: nn.Module, x: torch.Tensor, group=None) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+_tf32_lock = threading.Lock()
+_tf32_open = 0                  # blocks of _no_tf32 open, in any thread
+_tf32_saved = (False, False)
+
+
 @contextlib.contextmanager
-def _full_float32_matmul():
-    """float32 matmuls without TF32 inside the block (restored after)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _no_tf32():
+    """float32 matmuls and convolutions without TF32 inside the block. The
+    flags are process-wide and blocks may be open in several threads at
+    once (the long-form loop's groups), so the first block to open saves
+    them and the last to close restores them."""
+    global _tf32_open, _tf32_saved
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    with _tf32_lock:
+        if _tf32_open == 0:
+            _tf32_saved = tuple(f.allow_tf32 for f in flags)
+            for f in flags:
+                f.allow_tf32 = False
+        _tf32_open += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_open -= 1
+            if _tf32_open == 0:
+                for f, prev in zip(flags, _tf32_saved):
+                    f.allow_tf32 = prev
 
 
 def _int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -226,7 +246,7 @@ def _int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     values, TF32 off (PyTorch has no batched int8 product). Exact where every
     partial sum stays below 2^24: always for the Dh = 64 contraction
     (64 x 127^2), and to 1 ulp at worst for the T = 1500 one."""
-    with _full_float32_matmul():
+    with _no_tf32():
         return torch.einsum(equation, a.float(), b.float())
 
 
@@ -270,14 +290,15 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(n_state, n_state)
 
     def self_attention(self, x: torch.Tensor, key_bias: Optional[torch.Tensor] = None,
-                       int8: bool = False, seq_group=None) -> torch.Tensor:
+                       int8: bool = False, seq=None) -> torch.Tensor:
         """Encoder self-attention of x [B, T, D] through the attention
         kernels: ``self_attention``, or ``onepass_self_attention`` when a
         ``key_bias`` [1, T] is given. ``int8`` runs the four projections
-        W8A8. ``seq_group``: x holds this rank's T / m frames of the
-        sequence-parallel encode; q, k and v go through the sequence ->
-        heads all-to-all, so the kernels see every frame of H / m heads,
-        and the output comes back by the inverse all-to-all."""
+        W8A8. ``seq``: (group, T) of the sequence-parallel encode, x
+        holding this rank's run of the T frames; q, k and v go through the
+        sequence -> heads all-to-all, so the kernels see every frame of
+        this rank's heads, and the output comes back by the inverse
+        all-to-all."""
         b, t, _ = x.shape
         lin = _linear_int8 if int8 else _linear
         x = copy_to_model(x, self.group)
@@ -286,12 +307,12 @@ class MultiHeadAttention(nn.Module):
         q = q * scale
         k = _split_heads(lin(self.key, x), self.n_head) * scale
         v = _split_heads(lin(self.value, x), self.n_head).contiguous()
-        if seq_group is not None:
-            q, k, v = (seq_to_heads(y, seq_group) for y in (q, k, v))
+        if seq is not None:
+            q, k, v = (seq_to_heads(y, seq[1], seq[0]) for y in (q, k, v))
         out = (self_attention(q, k, v) if key_bias is None
                else onepass_self_attention(q, k, v, key_bias))
-        if seq_group is not None:
-            out = heads_to_seq(out, seq_group)
+        if seq is not None:
+            out = heads_to_seq(out, self.n_head, seq[0])
         return _row_linear(self.out, out.reshape(b, t, -1), self.group, int8)
 
     def attend(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
@@ -340,9 +361,8 @@ class ResidualAttentionBlock(nn.Module):
                                self.mlp_group, int8)
 
     def encoder_forward(self, x: torch.Tensor, key_bias: Optional[torch.Tensor] = None,
-                        int8: bool = False, seq_group=None) -> torch.Tensor:
-        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias, int8,
-                                         seq_group)
+                        int8: bool = False, seq=None) -> torch.Tensor:
+        x = x + self.attn.self_attention(_layer_norm(self.attn_ln, x), key_bias, int8, seq)
         return self._mlp(x, int8)
 
     def decoder_forward(self, x: torch.Tensor, xa: torch.Tensor,
@@ -364,8 +384,9 @@ def _run_block(fn, remat: bool, *args):
 def encoder_blocks(blocks, cfg: WhisperConfig, x: torch.Tensor, remat: bool = False,
                    seq=None) -> torch.Tensor:
     """Encoder ``blocks`` in order on the post-stem x [B, T, D], with the
-    one-pass route's zero key bias unless sequence-sharded over ``seq``:
-    the loop of :meth:`AudioEncoder.forward` and a pipeline stage's body."""
+    one-pass route's zero key bias unless sequence-sharded (``seq``: the
+    group and the full frame count; x holds this rank's run): the loop of
+    :meth:`AudioEncoder.forward` and a pipeline stage's body."""
     key_bias = (torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
                 if cfg.onepass_encoder and seq is None else None)
     for block in blocks:
@@ -403,7 +424,7 @@ class AudioEncoder(nn.Module):
         gelu = lambda y: F.gelu(y, approximate="tanh" if self.cfg.fast_gelu else "none")
         x = mel.to(dtype)
         # cuDNN runs float32 convolutions in TF32 unless told otherwise
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with _no_tf32():
             x = gelu(F.conv1d(x, self.conv1.weight.to(dtype), self.conv1.bias.to(dtype),
                               padding=1))
             x = gelu(F.conv1d(x, self.conv2.weight.to(dtype), self.conv2.bias.to(dtype),
@@ -418,29 +439,28 @@ class AudioEncoder(nn.Module):
 
         ``sequence_sharding`` (``parallel.mesh.sequence_sharding``'s group
         of m ranks) runs the sequence-parallel encode: the stem runs
-        replicated, each rank keeps its T / m frames through the blocks
-        (attention by the Ulysses all-to-all, which needs T and the heads
-        divisible by m; the one-pass key-bias route is off, as in JAX), and
-        the features are gathered back to every rank. An inference path:
-        no gradient is summed over the group, so it refuses autograd.
+        replicated, each rank keeps its run of the T frames through the
+        blocks (GSPMD's split, ``parallel.mesh.frame_split``; attention by
+        the Ulysses all-to-all over ``head_split``'s heads, so any T and H
+        take any m; the one-pass key-bias route is off, as in JAX), and the
+        features are gathered back to every rank. An inference path: no
+        gradient is summed over the group, so it refuses autograd.
 
         ``run_blocks(x, remat)`` replaces the loop over the blocks
         (:func:`encoder_blocks`); ``parallel.pipeline`` pipelines them."""
         x = self._stem(mel)
-        seq = sequence_sharding
-        if seq is not None:
-            x = self._sequence_shard(x, seq)
+        group, seq = sequence_sharding, None
+        if group is not None:
+            runs, r = self._sequence_runs(x, group), dist.get_rank(group)
+            seq = (group, x.shape[1])
+            x = x.narrow(1, sum(runs[:r]), runs[r])
         run_blocks = run_blocks or functools.partial(encoder_blocks, self.blocks, self.cfg,
                                                      seq=seq)
         x = _layer_norm(self.ln_post, run_blocks(x, remat))
-        return x if seq is None else gather_dim(x, 1, seq)
+        return x if seq is None else gather_dim(x, 1, group, runs)
 
-    def _sequence_shard(self, x: torch.Tensor, group) -> torch.Tensor:
-        m, r = dist.get_world_size(group), dist.get_rank(group)
-        t, heads = x.shape[1], self.cfg.n_audio_head
-        if t % m or heads % m:
-            raise ValueError(f"the sequence-parallel encode needs the frames ({t}) and the "
-                             f"heads ({heads}) divisible by the group's {m} ranks")
+    def _sequence_runs(self, x: torch.Tensor, group) -> list:
+        """Each rank's run of the frames, after the refusals."""
         if any(block.attn.group is not None for block in self.blocks):
             raise ValueError("the sequence-parallel encode takes a replicated encoder, "
                              "not a tensor-parallel one")
@@ -450,7 +470,7 @@ class AudioEncoder(nn.Module):
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             raise ValueError("the sequence-parallel encode is an inference path; run it "
                              "under torch.no_grad()")
-        return x[:, r * (t // m):(r + 1) * (t // m)]
+        return frame_split(x.shape[1], dist.get_world_size(group))
 
 
 class TextDecoder(nn.Module):

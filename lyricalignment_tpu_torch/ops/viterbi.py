@@ -80,6 +80,19 @@ def row_lse_plain(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return m + torch.log(s)
 
 
+def _feat4(h: torch.Tensor, w: torch.Tensor, name: str):
+    """(h, w, feat) with the feature columns zero-padded to a multiple of 4
+    (the kernels' tensor maps read 16-byte rows): exact, since zero columns
+    add nothing to a dot product. Raise unless h and w (as given, or
+    padded) start on a 16-byte boundary."""
+    pad = -h.shape[1] % 4
+    if pad:
+        h, w = F.pad(h, (0, pad)), F.pad(w, (0, pad))
+    if h.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: needs 16-byte aligned h, w")
+    return h, w, h.shape[1]
+
+
 def _row_lse_forward(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not h.is_cuda:
         kernels.plain_or_raise("row_lse", h)
@@ -91,8 +104,7 @@ def _row_lse_forward(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     cols = w.shape[0]
     if w.shape[1] != feat or b.shape[0] != cols or cols == 0:
         raise ValueError("row_lse: shapes of h, w, b do not agree")
-    if feat % 4 or h.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("row_lse: needs feat % 4 == 0 and 16-byte aligned h, w")
+    h, w, feat = _feat4(h, w, "row_lse")
     out = torch.empty((rows,), dtype=torch.float32, device=h.device)
     if rows:
         # the low halves of w's split and the column ranges' partial results
@@ -133,19 +145,22 @@ def row_lse_bwd(h, w, b, lse, g, needs=(True, True, True)):
         return tuple(x if need else None
                      for x, need in zip(row_lse_bwd_plain(h, w, b, lse, g), needs))
     rows, feat, cols = _check_bwd(h, w, b, lse, g)
+    h, w, padded = _feat4(h, w, "row_lse_bwd")
     dh = torch.empty_like(h) if needs[0] else None
-    dw = torch.empty((cols, feat), dtype=torch.float32, device=h.device) if needs[1] else None
+    dw = torch.empty((cols, padded), dtype=torch.float32, device=h.device) if needs[1] else None
     db = torch.empty((cols,), dtype=torch.float32, device=h.device) if needs[2] else None
     if any(needs):
         # w's split and transposed copies for one chunk, h's transposed
         # copies, p and p^T of one chunk, dh's partial sums
         scratch = torch.empty(
-            (kernels.library().la_row_lse_bwd_scratch_floats(rows, feat, cols),),
+            (kernels.library().la_row_lse_bwd_scratch_floats(rows, padded, cols),),
             dtype=torch.float32, device=h.device)
         kernels.launch("la_row_lse_bwd", h.data_ptr(), w.data_ptr(), b.data_ptr(),
                        lse.data_ptr(), g.data_ptr(), *(None if x is None else x.data_ptr()
                                                        for x in (dh, dw, db)),
-                       scratch.data_ptr(), rows, feat, cols, kernels.stream_of(h))
+                       scratch.data_ptr(), rows, padded, cols, kernels.stream_of(h))
+    if padded != feat:   # the zero columns' gradients go
+        dh, dw = (None if x is None else x[:, :feat] for x in (dh, dw))
     return dh, dw, db
 
 
@@ -159,8 +174,6 @@ def _check_bwd(h, w, b, lse, g):
     if (w.shape[1] != feat or b.shape[0] != cols or cols == 0
             or any(t.shape[0] != rows for t in (lse, g))):
         raise ValueError("row_lse_bwd: shapes of h, w, b, lse, g do not agree")
-    if feat % 4 or any(t.data_ptr() % 16 for t in (h, w)):
-        raise ValueError("row_lse_bwd: needs feat % 4 == 0 and 16-byte aligned h, w")
     return rows, feat, cols
 
 

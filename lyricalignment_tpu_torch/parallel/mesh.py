@@ -35,9 +35,12 @@ XLA would put it, as Megatron-LM writes them:
   chain runs ``torch._foreach_*`` and the converters read plain state
   dicts, so no DTensor is unwrapped anywhere;
 * :func:`sequence_sharding` is the group of the sequence-parallel encode
-  (``models.whisper.encode_audio(sequence_sharding=...)``): each rank holds
-  T / m frames and a sequence -> heads all-to-all (Ulysses) gives the
-  attention kernels the full T over H / m heads.
+  (``models.whisper.encode_audio(sequence_sharding=...)``): rank r holds a
+  contiguous run of the T frames, GSPMD's split (:func:`frame_split`:
+  ceil(T / m) each, the last ranks the rest), and a sequence -> heads
+  all-to-all (Ulysses, with uneven splits) gives the attention kernels
+  every frame of its share of the H heads (:func:`head_split`: sizes that
+  differ by at most one, 0 where H < m), so any T and H take any m.
 
 The all-gathers are all-reduces into a zero-filled buffer into which each
 rank wrote its slice: exact (a value plus zeros), and possible on every
@@ -47,6 +50,7 @@ backend (gloo reduces CUDA tensors but does not gather them).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -166,13 +170,14 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _all_reduce(x.clone(), group, dist.ReduceOp.MAX)
 
 
-def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _gather(x: torch.Tensor, dim: int, group, sizes=None) -> torch.Tensor:
+    """``sizes``: every rank's extent along ``dim`` (None: all equal)."""
     m, r = dist.get_world_size(group), dist.get_rank(group)
-    n = x.shape[dim]
+    sizes = sizes or [x.shape[dim]] * m
     shape = list(x.shape)
-    shape[dim] = n * m
+    shape[dim] = sum(sizes)
     full = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    full.narrow(dim, r * n, n).copy_(x)
+    full.narrow(dim, sum(sizes[:r]), sizes[r]).copy_(x)
     return _all_reduce(full, group)
 
 
@@ -181,41 +186,70 @@ class _GatherDim(torch.autograd.Function):
     consumers of the gathered tensor run replicated over the group)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
-        return _gather(x, dim, group)
+    def forward(ctx, x, dim, group, sizes):
+        r = dist.get_rank(group)
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.start = sum(sizes[:r]) if sizes else r * ctx.n
+        return _gather(x, dim, group, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        r = dist.get_rank(ctx.group)
-        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
 
 
-def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's x concatenated along ``dim`` in rank order."""
-    return x if group is None else _GatherDim.apply(x, dim, group)
+def gather_dim(x: torch.Tensor, dim: int, group, sizes=None) -> torch.Tensor:
+    """Every rank's x concatenated along ``dim`` in rank order; ``sizes``
+    lists the ranks' extents along ``dim`` where they differ."""
+    return x if group is None else _GatherDim.apply(x, dim, group, sizes)
 
 
-def seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
-    """Ulysses all-to-all: [B, T / m, H, Dh] (this rank's frames, every
-    head) -> [B, T, H / m, Dh] (every frame, this rank's heads)."""
-    m = dist.get_world_size(group)
-    b, tl, h, d = x.shape
-    send = x.reshape(b, tl, m, h // m, d).permute(2, 0, 1, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return recv.permute(1, 0, 2, 3, 4).reshape(b, m * tl, h // m, d)
+def frame_split(t: int, m: int) -> list:
+    """GSPMD's split of t frames over m ranks: ceil(t / m) each in rank
+    order, the last ranks the rest (0 once the frames run out)."""
+    per = -(-t // m)
+    return [max(0, min(per, t - r * per)) for r in range(m)]
 
 
-def heads_to_seq(y: torch.Tensor, group) -> torch.Tensor:
-    """The inverse of :func:`seq_to_heads`: [B, T, H / m, Dh] -> [B, T / m,
-    H, Dh]."""
-    m = dist.get_world_size(group)
-    b, t, hl, d = y.shape
-    send = y.reshape(b, m, t // m, hl, d).permute(1, 0, 2, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return recv.permute(1, 2, 0, 3, 4).reshape(b, t // m, m * hl, d)
+def head_split(h: int, m: int) -> list:
+    """h heads over m ranks, sizes differing by at most one (the first
+    h % m ranks take one more; 0 where h < m)."""
+    return [h // m + (r < h % m) for r in range(m)]
+
+
+def _all_to_all(chunks, recv_shapes, group) -> list:
+    """Send ``chunks[j]`` to rank j and return what each rank j sent here,
+    shaped ``recv_shapes[j]``: one ``all_to_all_single`` over the chunks
+    flattened, with uneven split sizes."""
+    send = torch.cat([c.reshape(-1) for c in chunks])
+    sizes = [math.prod(s) for s in recv_shapes]
+    recv = send.new_empty(sum(sizes))
+    dist.all_to_all_single(recv, send, output_split_sizes=sizes,
+                           input_split_sizes=[c.numel() for c in chunks], group=group)
+    return [part.view(s) for part, s in zip(recv.split(sizes), recv_shapes)]
+
+
+def seq_to_heads(x: torch.Tensor, t: int, group) -> torch.Tensor:
+    """Ulysses all-to-all of the sequence-parallel encode: [B, T_r, H, Dh]
+    (this rank's run of the ``t`` frames, every head) -> [B, t, H_r, Dh]
+    (every frame, this rank's heads), with :func:`frame_split`'s runs and
+    :func:`head_split`'s heads."""
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    b, _, h, d = x.shape
+    heads = head_split(h, m)
+    parts = _all_to_all(x.split(heads, dim=2),
+                        [(b, tj, heads[r], d) for tj in frame_split(t, m)], group)
+    return torch.cat(parts, dim=1)
+
+
+def heads_to_seq(y: torch.Tensor, h: int, group) -> torch.Tensor:
+    """The inverse of :func:`seq_to_heads`: [B, T, H_r, Dh] -> [B, T_r, h,
+    Dh]."""
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    b, t, _, d = y.shape
+    runs = frame_split(t, m)
+    parts = _all_to_all(y.split(runs, dim=1),
+                        [(b, runs[r], hj, d) for hj in head_split(h, m)], group)
+    return torch.cat(parts, dim=2)
 
 
 def gather_objects(obj, group=None) -> list:

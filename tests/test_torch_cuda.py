@@ -389,6 +389,18 @@ def test_bias_attention_refuses_other_head_widths(dev):
         onepass_self_attention(x, x, x, torch.zeros(1, 8, device=dev))
 
 
+def test_attention_skips_an_empty_call(dev):
+    """A rank of the sequence-parallel encode may hold no head (H < m): the
+    forward launches nothing and returns the empty output."""
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.ops.attention import self_attention
+
+    q = torch.empty(2, 1499, 0, 64, device=dev, dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    assert self_attention(q, q, q).shape == q.shape
+    assert dict(kernels.launches) == before
+
+
 def test_bias_attention_refuses_an_unaligned_bias(dev):
     """The bf16 forward reads the key bias with TMA: 16-byte aligned only."""
     from lyricalignment_tpu_torch.ops.attention import onepass_self_attention
@@ -504,14 +516,16 @@ def test_row_lse_accumulation_rounds(dev, top):
 
 
 def test_row_lse_refusals(dev):
-    """What the tensor maps cannot take is refused, not copied: feat not a
-    multiple of 4, h or w off a 16-byte boundary, shapes that disagree, other
-    types and layouts."""
-    from lyricalignment_tpu_torch.ops.viterbi import row_lse
+    """What the tensor maps cannot take is refused, not copied: h or w off a
+    16-byte boundary, shapes that disagree, other types and layouts. A feat
+    that is not a multiple of 4 is zero-padded by the wrapper (exact): feat
+    62 equals the plain version."""
+    from lyricalignment_tpu_torch.ops.viterbi import row_lse, row_lse_plain
 
     h, w, b = _lse_inputs(dev, 8, 64, 12, 1)
-    with pytest.raises(ValueError, match="feat % 4"):
-        row_lse(h[:, :62].contiguous(), w[:, :62].contiguous(), b)
+    h62, w62 = h[:, :62].contiguous(), w[:, :62].contiguous()
+    torch.testing.assert_close(row_lse(h62, w62, b), row_lse_plain(h62, w62, b),
+                               atol=2e-5, rtol=0)
     with pytest.raises(ValueError, match="16-byte aligned"):
         row_lse(h, torch.zeros(12 * 64 + 1, device=dev)[1:].view(12, 64), b)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -627,16 +641,16 @@ def test_row_lse_autograd_reaches_the_slice(dev, first):
 
 
 def test_row_lse_backward_refusals(dev):
-    """The backward takes what the forward takes: feat % 4 == 0 and 16-byte
-    aligned h and w (feat 36 and 784, past the first design's limits, are
-    held to float64); feat 62, an unaligned w and shapes that disagree are
-    refused."""
+    """The backward takes what the forward takes: 16-byte aligned h and w of
+    any feat (feat 36 and 784, past the first design's limits, and feat 62
+    and 766, zero-padded to a multiple of 4 by the wrapper, are held to
+    float64); an unaligned w and shapes that disagree are refused."""
     from lyricalignment_tpu_torch.ops.viterbi import row_lse_bwd
 
     lse, g = torch.zeros(8, device=dev), torch.ones(8, device=dev)
-    h, w, b = _lse_inputs(dev, 8, 62, 12, 1)
-    with pytest.raises(ValueError, match="feat % 4"):
-        row_lse_bwd(h, w, b, lse, g)
+    for feat in (62, 766):
+        h, w, b = _lse_inputs(dev, 40, feat, 300, feat)
+        _check_backward(h, w, b, torch.randn(40, device=dev, generator=_gen(feat)))
     h, w, b = _lse_inputs(dev, 8, 64, 12, 1)
     with pytest.raises(ValueError, match="16-byte aligned"):
         row_lse_bwd(h, torch.zeros(12 * 64 + 1, device=dev)[1:].view(12, 64), b, lse, g)

@@ -4,9 +4,11 @@ rank -> coordinate layout, the spec table against JAX's
 ``align_param_specs`` leaf by leaf, ``shard_align_params`` then the
 checkpoint gather bit for bit (an indivisible model stays replicated), the
 Megatron f / g operators and the gather against autograd on the unsharded
-linears, and the sequence-parallel encode over two ranks against the
-single-device JAX ``encode_audio`` at JAX's own tolerance
-(``tests/test_trainer.py:165``), with its refusals."""
+linears, and the sequence-parallel encode against the single-device JAX
+``encode_audio`` at JAX's own tolerance (``tests/test_trainer.py:165``):
+over two ranks evenly, at 1499 frames (750 / 749) and at 3 heads (2 / 1),
+and over four ranks at 2 heads (JAX's own case; two ranks hold no head),
+with its refusal of autograd."""
 
 import jax
 import jax.numpy as jnp
@@ -112,9 +114,11 @@ def _payload():
     cfg, params = jax_tiny_model(dims=DIMS)
     whisper = torch_model(cfg, params).whisper_model
     payload["sp"] = (whisper.cfg, tph.numpy_dict(whisper.state_dict()), f(2, 80, 3000))
-    ind = torch_model(*jax_tiny_model(dims=DIMS_IND)).whisper_model
+    ind_cfg, ind_params = jax_tiny_model(dims=DIMS_IND)
+    ind = torch_model(ind_cfg, ind_params).whisper_model
     payload["sp_heads3"] = (ind.cfg, tph.numpy_dict(ind.state_dict()))
-    return payload, (params["whisper"], cfg.whisper)
+    return payload, {"sp": (params["whisper"], cfg.whisper),
+                     "sp_heads3": (ind_params["whisper"], ind_cfg.whisper)}
 
 
 @pytest.fixture(scope="module")
@@ -173,29 +177,69 @@ def test_megatron_operators_match_autograd(world2):
         np.testing.assert_allclose(fg["db2"], tw[3].grad.numpy(), rtol=1e-5, atol=1e-6)
 
 
+def _jax_encode(ref, mel):
+    params, cfg = ref
+    return np.asarray(jax_encode_audio(as_jax(params), cfg, jnp.asarray(mel)))
+
+
 def test_sequence_parallel_encode_matches_single_device_jax(world2):
-    payload, (params, cfg), ranks = world2
-    mel = payload["sp"][2]
-    base = np.asarray(jax_encode_audio(as_jax(params), cfg, jnp.asarray(mel)))
+    payload, jax_ref, ranks = world2
+    base = _jax_encode(jax_ref["sp"], payload["sp"][2])
     for out in ranks:
         np.testing.assert_allclose(out["sp"], base, atol=2e-4, rtol=1e-4)
 
 
+# the JAX model and the mel frames kept
+UNEVEN = {"sp_frames1499": ("sp", 2998), "sp_heads3": ("sp_heads3", 3000)}
+
+
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_sequence_parallel_uneven_split_matches_single_device_jax(world2, case):
+    """1499 frames (750 / 749 a rank) and 3 heads (2 / 1) over two ranks."""
+    payload, jax_ref, ranks = world2
+    model, frames = UNEVEN[case]
+    base = _jax_encode(jax_ref[model], payload["sp"][2][..., :frames])
+    for out in ranks:
+        np.testing.assert_allclose(out[case], base, atol=2e-4, rtol=1e-4)
+
+
 def test_sequence_parallel_refusals(world2):
+    """No frame count or head count is refused any more (the cases above);
+    autograd still is."""
     _, _, ranks = world2
-    t_msg, h_msg = ranks[0]["sp_refusals"]
-    assert "frames (1499)" in t_msg and "divisible" in t_msg
-    assert "heads (3)" in h_msg and "divisible" in h_msg
     assert "inference path" in ranks[0]["sp_grad_refusal"]
 
 
-def test_rank_coordinates(world2, tmp_path):
+# JAX's own case (tests/test_trainer.py:151-165): 2 heads of width 8, 1500
+# frames over 4 ranks
+DIMS_SP4 = dict(n_audio_state=16, n_audio_head=2, n_audio_layer=1, n_text_state=16,
+                n_text_head=2, n_text_layer=1, n_vocab=32)
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    cfg, params = jax_tiny_model(dims=DIMS_SP4)
+    whisper = torch_model(cfg, params).whisper_model
+    mel = np.random.default_rng(5).standard_normal((2, 80, 3000)).astype(np.float32)
+    payload = (whisper.cfg, tph.numpy_dict(whisper.state_dict()), mel)
+    ranks = tph.run_ranks(tph.coordinates, 4, tmp_path_factory.mktemp("w4"), payload)
+    return (params["whisper"], cfg.whisper), mel, ranks
+
+
+def test_rank_coordinates(world2, world4):
     """Rank r sits at (r // model, r % model), as JAX's devices.reshape
     (data, model): on (1 x 2), on (2 x 1) and on (2 x 2), with each data
     rank's rows of a batch of 8."""
     _, _, ranks = world2
     assert [out["coords"] for out in ranks] == [[(0, 0), (0, 0)], [(0, 1), (1, 0)]]
-    got = tph.run_ranks(tph.coordinates, 4, tmp_path)
-    for r, (coord, d, m, nd, nm, rows) in enumerate(got):
+    for r, ((coord, d, m, nd, nm, rows), _) in enumerate(world4[2]):
         assert coord == (r // 2, r % 2) == (d, m) and (nd, nm) == (2, 2)
         assert rows == slice(4 * d, 4 * d + 4)
+
+
+def test_sequence_parallel_encode_over_four_ranks(world4):
+    """2 heads over 4 ranks (1 / 1 / 0 / 0), 375 frames a rank."""
+    ref, mel, ranks = world4
+    base = _jax_encode(ref, mel)
+    for _, encoded in ranks:
+        np.testing.assert_allclose(encoded, base, atol=2e-4, rtol=1e-4)

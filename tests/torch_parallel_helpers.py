@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import os
 import pickle
+import signal
+import time
 import traceback
+from multiprocessing.connection import wait
 
 import numpy as np
 import torch
@@ -17,10 +20,19 @@ import torch.multiprocessing as mp
 
 
 def _rank_main(rank, world, rdzv, out_dir, fn, payload):
+    # this rank's stderr, gloo's C++ messages included, to a file of its own
+    err = os.open(os.path.join(out_dir, f"stderr{rank}.txt"),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(err, 2)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank, world_size=world)
     try:
         result = fn(rank, world, payload)
+        # no rank leaves while another may still be joining it: gloo ends a
+        # pair's handshake on one side first (a new group's, the meshes'),
+        # and a peer that exits then fails the other side's read
+        # ("Connection closed by peer")
+        dist.barrier()
     except BaseException:
         with open(os.path.join(out_dir, f"error{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
@@ -31,19 +43,46 @@ def _rank_main(rank, world, rdzv, out_dir, fn, payload):
         pickle.dump(result, f)
 
 
+def _report(out_dir, procs) -> str:
+    """Each rank's exit code (or the signal that ended it), traceback and
+    stderr."""
+    lines = []
+    for rank, proc in enumerate(procs):
+        code = proc.exitcode
+        how = (f"signal {signal.Signals(-code).name}" if code is not None and code < 0
+               else f"exit code {code}")
+        lines.append(f"--- rank {rank}: {how}")
+        for name in (f"error{rank}.txt", f"stderr{rank}.txt"):
+            path = os.path.join(out_dir, name)
+            if os.path.exists(path):
+                lines.append(f"{name}:\n{open(path).read().strip()}")
+    return "\n".join(lines)
+
+
 def run_ranks(fn, world: int, tmp_path, payload=None) -> list:
     """``fn(rank, world, payload)`` on ``world`` spawned processes joined
     over gloo through a ``file://`` rendezvous in ``tmp_path``; each rank's
-    return value, in rank order."""
+    return value, in rank order. Ranks still running after 900 s, or 60 s
+    after another failed, are stopped, and the error names every rank's
+    exit code or signal with its traceback and stderr."""
     out_dir = str(tmp_path)
     os.makedirs(out_dir, exist_ok=True)
     rdzv = os.path.join(out_dir, "rdzv")
-    try:
-        mp.spawn(_rank_main, args=(world, rdzv, out_dir, fn, payload), nprocs=world, join=True)
-    except Exception as exc:
-        errors = [open(os.path.join(out_dir, n)).read() for n in sorted(os.listdir(out_dir))
-                  if n.startswith("error")]
-        raise AssertionError("\n".join(errors) or str(exc)) from exc
+    ctx = mp.spawn(_rank_main, args=(world, rdzv, out_dir, fn, payload), nprocs=world,
+                   join=False)
+    procs = ctx.processes
+    deadline = time.monotonic() + 900.0
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        wait([p.sentinel for p in procs if p.is_alive()], timeout=1.0)
+        if any(p.exitcode not in (None, 0) for p in procs):
+            deadline = min(deadline, time.monotonic() + 60.0)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{world} spawned ranks of {fn.__name__}:\n"
+                             + _report(out_dir, procs))
     results = []
     for rank in range(world):
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as f:
@@ -114,7 +153,8 @@ def numpy_dict(tensors):
 def mesh_checks(rank, world, p):
     """On a (1 x 2) mesh: the shard -> gather round trip of a divisible and
     an indivisible model, the Megatron operators against autograd, the
-    sequence-parallel encode and its refusals, the coordinate layout."""
+    sequence-parallel encode (even, 1499 frames, 3 heads) and its refusal
+    of autograd, the coordinate layout."""
     import torch.nn.functional as F
 
     from lyricalignment_tpu_torch.models.whisper import encode_audio
@@ -158,13 +198,11 @@ def mesh_checks(rank, world, p):
     seq = pm.sequence_sharding(mesh)
     with torch.no_grad():
         out["sp"] = encode_audio(whisper, torch.tensor(mel), sequence_sharding=seq).numpy()
-        refusals = []
-        for cfg_, sd_, mel_ in ((wcfg, wsd, mel[..., :-2]), (*p["sp_heads3"], mel)):
-            try:
-                encode_audio(whisper_model(cfg_, sd_), torch.tensor(mel_), sequence_sharding=seq)
-            except ValueError as exc:
-                refusals.append(str(exc))
-        out["sp_refusals"] = refusals
+        # uneven splits: 750 / 749 frames; 2 / 1 heads
+        out["sp_frames1499"] = encode_audio(whisper, torch.tensor(mel[..., :-2]),
+                                            sequence_sharding=seq).numpy()
+        out["sp_heads3"] = encode_audio(whisper_model(*p["sp_heads3"]), torch.tensor(mel),
+                                        sequence_sharding=seq).numpy()
     try:
         encode_audio(whisper, torch.tensor(mel), sequence_sharding=seq)
     except ValueError as exc:
@@ -173,14 +211,23 @@ def mesh_checks(rank, world, p):
 
 
 def coordinates(rank, world, p):
-    """(coordinate, data rank, model rank, group sizes) on a (2 x 2) mesh."""
+    """(coordinate, data rank, model rank, group sizes) on a (2 x 2) mesh;
+    then, on a (1 x 4) mesh, the sequence-parallel encode of ``p``'s model
+    and mel (JAX's own case: 2 heads over 4 ranks, so two ranks hold none)."""
+    from lyricalignment_tpu_torch.models.whisper import encode_audio
     from lyricalignment_tpu_torch.parallel import mesh as pm
 
     mesh = pm.make_mesh(data=-1, model=2)
     bs = pm.batch_sharding(mesh)
-    return (tuple(mesh.get_coordinate()), mesh.get_local_rank("data"),
-            mesh.get_local_rank("model"), pm.axis_size(mesh, "data"),
-            pm.axis_size(mesh, "model"), bs.rows(8))
+    coords = (tuple(mesh.get_coordinate()), mesh.get_local_rank("data"),
+              mesh.get_local_rank("model"), pm.axis_size(mesh, "data"),
+              pm.axis_size(mesh, "model"), bs.rows(8))
+    cfg, sd, mel = p
+    seq = pm.sequence_sharding(pm.make_mesh(data=1, model=4))
+    with torch.no_grad():
+        encoded = encode_audio(whisper_model(cfg, sd), torch.tensor(mel),
+                               sequence_sharding=seq).numpy()
+    return coords, encoded
 
 
 # ---------------------------------------------------------------------------
