@@ -106,9 +106,12 @@ NVIDIA GPU (written for the H100, sm_90a):
    90 s, 34 staged by ``prepare_longform_audio`` and 2 raw, with one group
    and then two (a thread and a CUDA stream each): every song's result
    identical between the two; each arm's audio-s/s, windows/s, the
-   device's idle share in a traced 2 s window and its launches (the
-   log-mel once a raw song, encoder attention once a layer a round); each
-   raw song loaded by the prefetch pool while still queued (G = 2).
+   device's idle share in a 2 s window (NVML's kernel-busy percentage,
+   sampled every 100 ms: a torch.profiler trace started beside the
+   groups' threads once ended the process with SIGSEGV, and slowed the
+   arm by ~60%) and its launches (the log-mel once a raw song, encoder
+   attention once a layer a round); each raw song loaded by the prefetch
+   pool while still queued (G = 2).
 
 8. phase "serve", checkpoint interop and the JSONL service at whisper-medium
    (bf16, random weights from a seed): the backbone goes through
@@ -172,6 +175,29 @@ NVIDIA GPU (written for the H100, sm_90a):
        2e-2 of the rate) of one process that runs the same micro-batches
        one after another; the gradients' distance to the unsplit process at
        most 1.1x that process's own, plus 1e-5.
+
+11. phase "orbax", the JAX package's orbax checkpoints read without orbax,
+   tensorstore, zstandard, msgpack or ml_dtypes (the phase fails if one is
+   imported):
+   (a) builds the hand-written zstd decoder (``native/zstd.cpp``) with g++,
+       reads the committed tiny full-state dir (``tests/data/torch_orbax``,
+       written by ``scripts/torch_orbax_fixtures.py``) through
+       ``load_model_dir`` on the card (its state dict bit for bit the JAX
+       ``export_reference_pt`` of the same weights) and its train state
+       through ``restore_train_state`` (count and step as recorded, the
+       bf16 Adam mu bit for bit);
+   (b) reads the committed whisper-medium import dir (tiled weights, full
+       width and depth) through ``load_model_dir(device="cuda",
+       use_bf16=True)``, checks every leaf against the SHA-256 the JAX
+       package recorded, and aligns 16 x 30 s with ``align_many`` (the four
+       serving kernels launched, every onset and offset finite), equal to
+       the same weights reloaded from a ``.pt`` model dir that the phase
+       writes with ``export_reference_pt``;
+   (c) prints the decoder's MB/s (one thread, the 212 MB token embedding;
+       and ``restore_pytree`` of the whole dir on its thread pool), the
+       wall time of ``load_model_dir`` for the orbax and the ``.pt`` route
+       and of the CPU build of the float32 model that both start with,
+       beside the card's name and power limit.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -2437,17 +2463,40 @@ LF_SONGS = 36          # more than G = 2's 24 slots: slots refill, the pool load
 # songs given raw (the rest staged): queued right behind G = 2's 24 slots, so
 # group 1's first turn puts them in the prefetch pool
 LF_RAW = (24, 25)
-LF_TRACE_AT, LF_TRACE_S = 8.0, 2.0   # a traced window of each arm: start, length (s)
+LF_TRACE_AT, LF_TRACE_S = 8.0, 2.0   # the sampled window of each arm: start, length (s)
+
+
+def _nvml_busy(seconds_fn):
+    """NVML's ``utilization.gpu`` of card 0 (the percentage of each sample
+    period in which a kernel ran), sampled every 100 ms by ``nvidia-smi``
+    while ``seconds_fn()`` runs: (mean busy share, samples), or None when
+    no sample came. No CUDA call is made here, and nothing is hooked into
+    the threads that launch."""
+    cmd = ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+           "--format=csv,noheader,nounits", "-lms", "100"]
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                                text=True)
+    except OSError:
+        seconds_fn()
+        return None
+    try:
+        seconds_fn()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    samples = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+    return (sum(samples) / len(samples) / 100.0, len(samples)) if samples else None
 
 
 def _lf_arm(run, groups):
     """One arm of phase "longform": ``run(groups)`` in a thread of its own
-    while this one traces ``LF_TRACE_S`` seconds of it from ``LF_TRACE_AT``
-    on. (results, wall s, device busy ms and span ms of the window or None)."""
+    while this one samples the device's busy share for ``LF_TRACE_S``
+    seconds of it from ``LF_TRACE_AT`` on. (results, wall s, (busy share,
+    samples) of the window or None)."""
     import threading
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
 
@@ -2462,21 +2511,12 @@ def _lf_arm(run, groups):
     worker = threading.Thread(target=go)
     worker.start()
     worker.join(LF_TRACE_AT)
-    window = None
-    try:
-        if worker.is_alive():
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                worker.join(LF_TRACE_S)
-            window = prof
-    except Exception as exc:  # noqa: BLE001 - CUPTI may be unavailable
-        log(f"[longform] trace not measured: {type(exc).__name__}: {exc}")
+    busy = _nvml_busy(lambda: worker.join(LF_TRACE_S)) if worker.is_alive() else None
     worker.join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if "error" in out:
         raise out["error"]
-    spans = _trace_spans(window) if window is not None else []
-    busy = (_busy_ms(spans), (spans[-1][1] - spans[0][0]) / 1e3) if spans else None
     return out["results"], wall, busy
 
 
@@ -2486,7 +2526,7 @@ def phase_longform(dev, card, tmp):
     ``prepare_longform_audio`` but ``LF_RAW``), with one group (G = 1) and
     then two (G = 2, a thread and a CUDA stream each) on the same songs:
     (a) every song's text and segments identical between the arms; (b) each
-    arm's audio-s/s, the device's idle share in a traced window, and its
+    arm's audio-s/s, the device's idle share in a sampled window, and its
     launches (the log-mel once a raw song, encoder attention once a layer
     a round); (c) each raw song loaded by the prefetch pool: its log-mel
     made while it was still queued, with window decodes between that and
@@ -2561,10 +2601,9 @@ def phase_longform(dev, card, tmp):
             arms[groups] = (results, counts, list(events))
             n_enc = sum(kind == "encode" for kind, _ in events)
             n_win = sum(kind == "window" for kind, _ in events)
-            idle = ("not measured (the profiler recorded no device activity)" if busy is None
-                    else f"{1 - busy[0] / busy[1]:.3f} (device busy {busy[0]:.1f} ms of the "
-                         f"{busy[1]:.1f} ms its {LF_TRACE_S:.0f} s traced window spans, from "
-                         f"{LF_TRACE_AT:.0f} s in)")
+            idle = ("not measured (no NVML sample)" if busy is None
+                    else f"{1 - busy[0]:.3f} (NVML utilization.gpu, mean of {busy[1]} samples "
+                         f"every 100 ms over {LF_TRACE_S:.0f} s from {LF_TRACE_AT:.0f} s in)")
             log(f"[longform] G = {groups} x {LF_BATCH} slots, beam {LF_BEAM}, decode group "
                 f"{LF_DECODE_GROUP}, {LF_MAX_NEW} new tokens: {LF_SONGS} songs x "
                 f"{LF_SECONDS:.0f} s in {wall:.2f} s = "
@@ -3738,6 +3777,210 @@ def phase_pipe(dev, card, tmp):
     return outs[0]["a_counts"], outs[0]["medium_counts"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the JAX package's orbax checkpoints, read with no orbax
+# ---------------------------------------------------------------------------
+
+ORBAX_DIR = os.path.join(REPO, "tests", "data", "torch_orbax")
+
+
+def _leaf_sha256(value) -> str:
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        value = value.view(torch.int16).numpy()
+    return hashlib.sha256(np.ascontiguousarray(value).tobytes()).hexdigest()
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat_leaves(v, f"{prefix}{i}.")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def phase_orbax_tiny(dev):
+    """(a) the decoder built with the host's g++; the committed tiny
+    full-state dir through ``load_model_dir`` on the card, its state dict
+    bit for bit the JAX ``export_reference_pt`` of the same weights; its
+    train state through ``restore_train_state``: count and step as
+    recorded, the bf16 Adam mu read as bf16, bit for bit the tree's."""
+    import io
+    import lzma
+
+    import torch
+
+    from lyricalignment_tpu_torch.cli.common import load_model_dir
+    from lyricalignment_tpu_torch.data import zstd
+    from lyricalignment_tpu_torch.train.checkpoints import restore_pytree, restore_train_state
+    from lyricalignment_tpu_torch.train.trainer import TrainConfig, init_train_state
+
+    for name in ("orbax", "tensorstore", "zstandard", "msgpack", "ml_dtypes", "jax"):
+        if name in sys.modules:
+            raise AssertionError(f"{name} is imported: phase orbax must run without it")
+    t0 = time.perf_counter()
+    lib = zstd._lib()
+    log(f"[orbax-a] zstd decoder built with g++ and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({lib._name})")
+    tiny = os.path.join(ORBAX_DIR, "tiny")
+    with open(os.path.join(ORBAX_DIR, "tiny.json"), encoding="utf-8") as f:
+        record = json.load(f)
+    _, model, _ = load_model_dir(tiny, device=str(dev))
+    with lzma.open(os.path.join(tiny, "best_model.pt.xz")) as f:
+        want = torch.load(io.BytesIO(f.read()), weights_only=True)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    assert set(sd) == set(want), sorted(set(sd) ^ set(want))[:5]
+    for k, v in want.items():
+        assert sd[k].dtype == v.dtype and torch.equal(sd[k], v), k
+    state, _ = init_train_state(model.train(), TrainConfig(adam_mu_dtype=torch.bfloat16))
+    restore_train_state(os.path.join(tiny, "best_model"), state)
+    assert state.step == record["step"] and state.opt_state.count == record["count"], \
+        (state.step, state.opt_state.count, record["step"], record["count"])
+    tree = restore_pytree(os.path.join(tiny, "best_model"))
+    mu = tree["opt_state"][1]["inner_states"]["head"]["inner_state"][0]["mu"]["align_head"]
+    got = state.opt_state.mu["align_rnn.fc.weight"]
+    assert got.dtype == torch.bfloat16 and got.device.type == dev.type
+    assert torch.equal(got.cpu(), mu["fc"]["w"].T), "restored Adam mu differs"
+    for name, v in _flat_leaves(tree):
+        assert _leaf_sha256(v) == record["leaves"][name]["sha256"], name
+    log(f"[orbax-a] tiny: state dict equal to the JAX export bit for bit ({len(want)} tensors), "
+        f"train state count {state.opt_state.count} step {state.step} (recorded "
+        f"{record['count']} / {record['step']}), {len(record['leaves'])} leaves' SHA-256 equal, "
+        f"Adam mu {got.dtype} on {got.device}")
+
+
+def phase_orbax(dev, card, tmp):
+    """Phase 11 (see the module docstring): (a) ``phase_orbax_tiny``; (b)
+    the committed whisper-medium import dir through ``load_model_dir`` on
+    the card in bf16, every leaf against its recorded SHA-256, then
+    ``align_many`` of 16 x 30 s with the serving kernels launched, equal to
+    the same weights reloaded through a ``.pt`` model dir; (c) the
+    decoder's MB/s and both routes' load times. Returns the launches of
+    (b)'s orbax batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.api import LyricAligner
+    from lyricalignment_tpu_torch.cli.common import build_model_config, load_model_dir
+    from lyricalignment_tpu_torch.data import zstd
+    from lyricalignment_tpu_torch.models.align_model import AlignModel
+    from lyricalignment_tpu_torch.text.bert_tokenizer import BertWordPieceTokenizer
+    from lyricalignment_tpu_torch.train.checkpoints import (
+        export_reference_pt,
+        load_json,
+        params_state_dict,
+    )
+    from lyricalignment_tpu_torch.train.orbax import OcdbtStore, restore_pytree
+
+    phase_orbax_tiny(dev)
+
+    medium = os.path.join(ORBAX_DIR, "medium")
+    ckpt = os.path.join(medium, "best_model")
+    with open(os.path.join(ORBAX_DIR, "medium.json"), encoding="utf-8") as f:
+        record = json.load(f)["leaves"]
+    on_disk = _dir_bytes(ckpt)
+    # (c) the decoder alone, one thread: the largest chunk (the token
+    # embedding, 212 MB), then the whole tree on the reader's thread pool
+    embedding = "params.whisper.decoder.token_embedding"
+    with OcdbtStore(ckpt) as store:
+        frame = store.get(f"{embedding}/0.0")
+    out = np.empty(int(np.prod(record[embedding]["shape"])) * 4, np.uint8)
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        zstd.decompress_into(frame, out)
+        rates.append(out.nbytes / (time.perf_counter() - t0) / 1e6)
+    t0 = time.perf_counter()
+    tree = restore_pytree(ckpt)
+    restore_s = time.perf_counter() - t0
+    leaves = dict(_flat_leaves(tree))
+    decoded = sum(v.nbytes if isinstance(v, np.ndarray) else v.numel() * v.element_size()
+                  for v in leaves.values())
+    bad = [n for n, v in leaves.items() if _leaf_sha256(v) != record[n]["sha256"]]
+    assert set(leaves) == set(record) and not bad, (sorted(set(leaves) ^ set(record))[:3], bad[:3])
+    log(f"[orbax-c] decoder, one thread, the token embedding ({out.nbytes / 1e6:.1f} MB) from "
+        f"{len(frame)} bytes: "
+        f"{max(rates):.0f} MB/s (best of 3; {', '.join(f'{r:.0f}' for r in rates)}); "
+        f"restore_pytree of whisper-medium: {decoded / 1e9:.3f} GB from {on_disk / 1e6:.3f} MB on "
+        f"disk in {restore_s:.2f} s = {decoded / restore_s / 1e6:.0f} MB/s "
+        f"({min(8, os.cpu_count() or 1)} threads); {card}")
+    log(f"[orbax-b] all {len(leaves)} leaves of the medium dir equal their recorded SHA-256")
+
+    # the .pt route: the same weights, put into a float32 model (built on
+    # the meta device and given the tensors) and written by
+    # export_reference_pt into a model dir of their own
+    pt_dir = os.path.join(tmp, "medium_pt")
+    os.makedirs(pt_dir)
+    for name in ("args.json", "model_args.json"):
+        shutil.copy(os.path.join(medium, name), pt_dir)
+    train_args = load_json(os.path.join(medium, "args.json"))
+    mcfg = build_model_config(
+        train_args["whisper_model"], whisper_dims=train_args.get("whisper_dims"),
+        output_dim=load_json(os.path.join(medium, "model_args.json"))["output_dim"])
+    with torch.device("meta"):
+        m32 = AlignModel(mcfg)
+    m32.load_state_dict(params_state_dict(tree["params"], mcfg.whisper.n_audio_ctx),
+                        strict=True, assign=True)
+    del tree, leaves
+    export_reference_pt(m32, os.path.join(pt_dir, "best_model.pt"))
+    # the part of either load that is neither route's: load_model_dir builds
+    # (and randomly initialises) the float32 model on the CPU first
+    t0 = time.perf_counter()
+    m32 = AlignModel(mcfg)
+    build_s = time.perf_counter() - t0
+    del m32
+
+    def timed_load(model_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, model, _ = load_model_dir(model_dir, device=str(dev), use_bf16=True)
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    vocab, table = _vocab_and_table()
+    tok = BertWordPieceTokenizer(vocab=vocab)
+    requests = _write_requests(tmp, [float(SECONDS)] * B, seed=11)
+    results, counts, loads, walls = {}, None, {}, {}
+    for route, model_dir in (("orbax", medium), ("pt", pt_dir)):
+        model, loads[route] = timed_load(model_dir)
+        aligner = LyricAligner(model, tok, table, use_ctc=True, batch_size=B)
+        aligner.align_many(requests[:1])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[route] = aligner.align_many(requests)
+        torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        if route == "orbax":
+            counts = dict(kernels.launches)
+        del aligner, model
+        torch.cuda.empty_cache()
+    _check_segments(results["orbax"], requests, [float(SECONDS)] * B)
+    for name in SERVING_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the orbax model's batch")
+    assert results["orbax"] == results["pt"], "orbax and .pt routes align differently"
+    n_seg = sum(len(r) for r in results["orbax"])
+    log(f"[orbax-b] whisper-medium bf16 from the orbax dir: align_many of {B} x {SECONDS} s in "
+        f"{walls['orbax']:.3f} s ({walls['pt']:.3f} s from the .pt reload), {n_seg} segments, "
+        f"every onset and offset finite, equal to the .pt route's; launches {counts}")
+    log(f"[orbax-c] load_model_dir(device=cuda, use_bf16=True): orbax route "
+        f"{loads['orbax']:.2f} s, .pt route {loads['pt']:.2f} s "
+        f"({os.path.getsize(os.path.join(pt_dir, 'best_model.pt')) / 1e9:.3f} GB .pt); building "
+        f"the float32 AlignModel on the CPU, which both do first: {build_s:.2f} s; {card}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3825,6 +4068,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             pipe_counts, pipe_train_counts = phase_pipe(dev, card, tmp)
         log(f"[pipe] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            orbax_counts = phase_orbax(dev, card, tmp)
+        log(f"[orbax] phase passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
@@ -3868,6 +4117,9 @@ def main() -> int:
         # "mesh" (d): rank 0's sequence-parallel medium encode
         row["longform_batched_launches"] = longform_counts.get(launcher, 0)
         row["mesh_seq3_rank_launches"] = mesh_seq_counts.get(launcher, 0)
+        # phase "orbax" (b): the batch of the model read from the JAX
+        # package's orbax dir
+        row["orbax_launches"] = orbax_counts.get(launcher, 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

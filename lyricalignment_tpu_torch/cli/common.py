@@ -42,7 +42,11 @@ from lyricalignment_tpu_torch.text.bert_tokenizer import (
     make_synthetic_vocab,
 )
 from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
-from lyricalignment_tpu_torch.train.checkpoints import load_json
+from lyricalignment_tpu_torch.train.checkpoints import (
+    load_json,
+    params_state_dict,
+    restore_pytree,
+)
 
 def resolve_device(device: str = "cuda") -> torch.device:
     """The device an entry point runs on; CUDA unless the caller asks for
@@ -231,8 +235,13 @@ def load_model_dir(
     int8_cross_kv: bool = False, device: str = "cuda",
 ) -> Tuple[AlignModelConfig, AlignModel, Dict]:
     """Load a model dir into an ``AlignModel`` in eval mode on ``device``.
-    Under ``use_bf16`` the whisper weights are made bf16-resident, then
-    under ``int8_encoder`` the encoder blocks' linears int8-resident (after
+    The checkpoint is ``{model_name}_model.pt`` (a reference state dict, as
+    the port writes) or the JAX package's orbax dir ``{model_name}_model/``
+    (``la-convert import``'s ``{"params", "step"}`` or the trainer's full
+    state: only its ``params`` are read), read with ``train.orbax`` and
+    mapped by ``models.convert.state_dict_from_jax_params``; either loads
+    with ``strict=True``. Under ``use_bf16`` the whisper weights are made
+    bf16-resident, then under ``int8_encoder`` the encoder blocks' linears int8-resident (after
     the bf16 cast, so the grid is the dynamic path's); the model dir on disk
     stays full precision. ``onepass_encoder`` defaults on for inference, as
     in the JAX package; ``int8_cross_kv`` quantises the decode cache's cross
@@ -251,14 +260,17 @@ def load_model_dir(
 
     base = os.path.join(model_dir, f"{model_name}_model")
     if os.path.isdir(base):
-        raise ValueError(
-            f"{base} is an orbax checkpoint of the JAX package; export it to "
-            f"a reference .pt first: la-convert export --model-dir {model_dir} "
-            f"--model-name {model_name} --pt {base}.pt")
-    if not os.path.exists(base + ".pt"):
-        raise FileNotFoundError(f"No checkpoint {base}.pt")
+        tree = restore_pytree(base, top="params")  # may be a full train state
+        params = tree["params"] if isinstance(tree, dict) and "params" in tree else tree
+        state_dict = params_state_dict(params, mcfg.whisper.n_audio_ctx)
+        del tree, params
+    elif os.path.exists(base + ".pt"):
+        state_dict = load_reference_checkpoint(base + ".pt")
+    else:
+        raise FileNotFoundError(f"No checkpoint {base}[.pt]")
     model = AlignModel(mcfg)
-    model.load_state_dict(load_reference_checkpoint(base + ".pt"), strict=True)
+    model.load_state_dict(state_dict, strict=True)
+    del state_dict
     if use_bf16:
         bf16_resident(model.whisper_model)
     if int8_encoder:

@@ -22,14 +22,15 @@ device code runs):
     # model dir -> reference-named .pt
     ... export --model-dir result --model-name best --pt out.pt
 
-Three differences from the JAX tool:
+``export`` and ``export-hf`` read a model dir of either package: the
+port's ``{name}_model.pt`` or the JAX package's orbax ``{name}_model/``
+(``la-convert import``'s or the trainer's full state), through
+``cli.common.load_model_dir``. Two differences from the JAX tool:
 
 * model dirs are written as ``{name}_model.pt`` in the reference's naming
   (what both packages' ``load_model_dir`` read), not as orbax checkpoints;
   ``args.json`` is the same, with ``whisper_model: "custom"`` and
   ``whisper_dims`` for a backbone that matches no size name;
-* ``export`` and ``export-hf`` read such a ``.pt`` model dir; an orbax dir
-  of the JAX package is exported with the JAX ``la-convert export``;
 * ``import-openai`` and ``import-hf`` draw only the align head, from
   ``--seed`` with ``init_weights``' distributions (torch's generator, so
   not the JAX tool's head); the backbone is the checkpoint's.

@@ -6,7 +6,9 @@ training flags and the same main loop — initial eval, then N steps of
 accumulated micro-batches, eval every ``--eval-steps``, best/last
 checkpoints — on one device (``--device cuda`` by default; ``cpu`` runs the
 kernels' plain versions). ``--resume dir/last_model`` continues from a
-checkpoint's weights, optimizer state and step.
+checkpoint's weights, optimizer state and step: the port's
+``last_model.pt`` + ``last_state.pt``, or the JAX trainer's orbax
+``last_model/`` (its Adam moments and count mapped by parameter name).
 
 ``--fused-losses`` computes the align losses from the head's hidden and
 its fc (no [B, T, C] logits); ``--tensorboard`` adds TensorBoard scalars
@@ -136,7 +138,8 @@ def parse_args(argv=None):
                    help="profile this step (0: none) into save_dir/profile/trace.json")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint (e.g. result/last_model) to resume weights, "
-                        "optimizer state and step from; the schedule continues")
+                        "optimizer state and step from, the port's .pt files or a JAX "
+                        "full-state orbax dir; the schedule continues")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of the kernels)")
     add_mesh_args(p, "each micro-batch", pipe=True)

@@ -1,8 +1,11 @@
 """The port stands alone: importing every module of
 ``lyricalignment_tpu_torch`` (and ``chip_smoke.py``, without running it)
-loads neither ``jax`` nor ``lyricalignment_tpu``; the entry points refuse to
-run quietly on the CPU when CUDA is absent; and the kernel wrappers take a
-plain path only for CPU tensors."""
+loads neither ``jax`` nor ``lyricalignment_tpu``, nor any of ``orbax``,
+``tensorstore``, ``zstandard``, ``msgpack`` and ``ml_dtypes`` (a GPU host
+need not have them: the port reads orbax checkpoints itself, and reading
+one loads none of them either); the entry points refuse to run quietly on
+the CPU when CUDA is absent; and the kernel wrappers take a plain path only
+for CPU tensors."""
 
 import os
 import subprocess
@@ -21,8 +24,9 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "lyricalignment_tpu"))
+refused = ("jax", "jaxlib", "lyricalignment_tpu", "orbax", "tensorstore", "zstandard",
+           "msgpack", "ml_dtypes")
+bad = sorted(n for n in sys.modules if n.split(".")[0] in refused)
 print(len(names), bad)
 assert len(names) >= 30 and not bad, bad
 # the transcription path and its scoring are among the modules probed
@@ -32,11 +36,17 @@ need = {"api", "cli.inference_transcript", "cli.evaluate_transcript", "decode.be
         "cli.serve", "cli.inference_alignment_nogt", "cli.postprocess", "data.native_loader",
         "ops.ctc", "utils.observability", "train.losses", "parallel", "parallel.mesh",
         "parallel.pipeline", "prep", "prep.get_pronunce_table", "prep.mix_with_musdb",
-        "prep.replace_path", "prep.separate_vocals"}
+        "prep.replace_path", "prep.separate_vocals", "train.orbax", "data.zstd"}
 missing = {n for n in need if pkg.__name__ + "." + n not in names}
 assert not missing, missing
 from lyricalignment_tpu_torch.api import LyricAligner
 assert callable(LyricAligner.transcribe_many)
+# reading a JAX orbax checkpoint loads none of them either
+from lyricalignment_tpu_torch.train.checkpoints import restore_pytree
+tree = restore_pytree("tests/data/torch_orbax/tiny/best_model")
+assert int(tree["step"]) == 3
+bad = sorted(n for n in sys.modules if n.split(".")[0] in refused)
+assert not bad, bad
 """
 
 
