@@ -199,6 +199,52 @@ NVIDIA GPU (written for the H100, sm_90a):
        and of the CPU build of the float32 model that both start with,
        beside the card's name and power limit.
 
+12. phase "large", the large family at full width and depth (random
+   weights from a seed; each part's models freed before the next; every
+   part logs its launches, asserts their counts, its seconds and its peak
+   memory beside the card's name and power limit):
+   (a) whisper-large alignment at bench.py's align_large point (bf16, tanh
+       GELU, the one-pass encoder, B = 16 x 30 s, 48 labels, CTC head of
+       21129 classes, ``viterbi_align_fused``; 1 / 32 / 1 / 1 launches a
+       batch) and whisper-medium on the same inputs, each against its
+       bf16-rounded weights computed in float32: large's encoder rel-L2 at
+       most 2x medium's, its onsets and offsets within a frame of float32's
+       at most 0.02 below medium's share, all finite and ordered; the
+       audio-s/s of 3 timed batches;
+   (b) a large-v3 model dir (128 mel bands, vocabulary 51866) written as
+       ``la-convert`` writes one, through ``load_model_dir`` (its CPU build
+       timed apart) and ``LyricAligner.align_many`` on the card; then the
+       128-band log-mel kernel at B = 16 x 30 s against the plain version in
+       float64 (atol 1e-4 within 8 decades of the peak), timed beside its
+       bound and ``torch.stft`` + mel;
+   (c) large-v3-turbo at bench.py's transcribe point: 16 windows, beam 5, 64
+       new tokens, decode group 3, the <|notimestamps|> prompt in the v3
+       layout (<|transcribe|> and <|notimestamps|> one above v2's);
+       windows/s and ms a step; greedy tokens of 2 windows against float32
+       on the same weights (tokens agreeing before the first divergence; a
+       KV-cached step's logits within rel-L2 3e-2 of the teacher-forced
+       float32 and bf16 decoders);
+   (d) the one-card large recipe (bench.py:240-259): freeze + remat, the
+       frozen encoder bf16-resident, 8 micro-batches of 2 x 30 s, bf16
+       accumulation and Adam mu, unfused losses; a warm-up and 2 timed
+       steps: finite losses, the encoder bit-unchanged and without
+       optimizer state, every other tensor moved, launches 8 / 256 a step
+       (the log-mel; the frozen encoder's attention under no_grad, through
+       the launcher that writes no row statistics); then one step with the
+       fused losses (their align CE and CTC within 1e-4 of the unfused ones
+       on the first micro-batch; the row LSE and its backward 16 a step,
+       each reduced CTC kernel 8);
+   (e) the same batch unfrozen with remat, one step (launches 8 / 512 / 256
+       / 256 of the log-mel, the attention forward (remat runs it again in
+       the backward), dK/dV and dQ), held to a step without remat on the
+       same weights (losses rtol 1e-5; both peaks printed);
+   (f) the train CLI at ``--whisper-model large-v3-turbo --freeze-encoder
+       --bf16`` for 2 updates, its ``best_model`` then through the
+       alignment CLI (1 / 32 / 1 / 1 launches);
+   then la_bias_attention at B x H = 16 x 20 and the training trio at 2 x
+   20 (T = 1500, bf16) against their plain versions, timed beside their
+   bounds and SDPA.
+
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero (and prints no result) without CUDA or without the repository
@@ -356,11 +402,43 @@ def report_rate(name: str, ms: float, ops: float, bound_ms: float, sdpa_ms: floa
 # Phase 1: each kernel against its plain version at main-path shapes
 # ---------------------------------------------------------------------------
 
+def _mel_work(padded, n_frames: int, n_mels: int):
+    """(operations, bytes) of the least work of the log-mel of ``padded``
+    [B, N + 400]: a real FFT of 5/2 N log2 N a frame, the power (3 a bin)
+    and the filterbank's nonzero weights; bytes of the padded audio in, the
+    weights and the log-mel out."""
+    from lyricalignment_tpu_torch import N_FFT
+    from lyricalignment_tpu_torch.ops import mel
+
+    nnz = int((mel.mel_filterbank(n_mels=n_mels) != 0).sum())
+    batch = padded.shape[0]
+    ops = batch * n_frames * (2.5 * N_FFT * math.log2(N_FFT) + 3 * 201 + 2 * nnz)
+    return ops, 4 * (padded.numel() + nnz + batch * n_mels * n_frames)
+
+
+def _stft_mel(audio, n_mels: int):
+    """The library route to the same log-mel: ``torch.stft``, the power,
+    the filterbank product and the log10 floor, as a callable."""
+    import torch
+
+    from lyricalignment_tpu_torch import HOP_LENGTH, N_FFT
+    from lyricalignment_tpu_torch.ops import mel
+
+    window = torch.hann_window(N_FFT, periodic=True, device=audio.device)
+    fb = torch.from_numpy(mel.mel_filterbank(n_mels=n_mels)).to(audio.device)
+
+    def stft_mel():
+        spec = torch.stft(audio, N_FFT, HOP_LENGTH, window=window, center=True,
+                          pad_mode="reflect", return_complex=True)[..., :-1]
+        return torch.log10(torch.clamp(fb @ spec.abs() ** 2, min=1e-10))
+    return stft_mel
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
 
-    from lyricalignment_tpu_torch import HOP_LENGTH, N_FFT
+    from lyricalignment_tpu_torch import HOP_LENGTH
     from lyricalignment_tpu_torch.ops import attention, mel, viterbi
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -386,22 +464,9 @@ def phase_kernels(dev):
     got = mel.log10_mel(padded, n_frames, n_mels)
     ref = mel.log10_mel_plain(padded, n_frames, n_mels)
     err = (got - ref).abs().max().item()
-    window = torch.hann_window(N_FFT, periodic=True, device=dev)
-    fb = torch.from_numpy(mel.mel_filterbank(n_mels=n_mels)).to(dev)
-
-    def stft_mel():
-        spec = torch.stft(audio, N_FFT, HOP_LENGTH, window=window, center=True,
-                          pad_mode="reflect", return_complex=True)[..., :-1]
-        return torch.log10(torch.clamp(fb @ spec.abs() ** 2, min=1e-10))
-
-    # the least work for this function: a real
-    # FFT of 5/2 N log2 N a frame, the power (3 a bin) and the filterbank's
-    # nonzero weights; bytes of the padded audio in and the log-mel out
-    nnz = int((fb != 0).sum())
-    ops = B * n_frames * (2.5 * N_FFT * math.log2(N_FFT) + 3 * 201 + 2 * nnz)
-    nbytes = 4 * (padded.numel() + nnz + got.numel())
+    ops, nbytes = _mel_work(padded, n_frames, n_mels)
     ms = time_ms(lambda: mel.log10_mel(padded, n_frames, n_mels), reps=20)
-    stft_ms = time_ms(stft_mel, reps=20)
+    stft_ms = time_ms(_stft_mel(audio, n_mels), reps=20)
     bound_ms, bound_by = bound(ops, PEAK_F32, nbytes)
     report("log10_mel", "lyricalignment_tpu_torch/csrc/mel.cu",
            "lyricalignment_tpu/ops/mel_pallas.py:43", err, "atol 1e-4",
@@ -767,14 +832,15 @@ def _device_trace(fn):
 
 def _trace_spans(prof):
     """(start us, end us, name) of each device kernel, copy and memset of a
-    finished profile, in start order."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    return sorted((e["ts"], e["ts"] + e["dur"], e.get("name", "?")) for e in events
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    finished profile, in start order, from the profiler's own events: the
+    same spans as its chrome trace, whose JSON took ~4x as long to write
+    and read (on an H100, 0.76 s against 0.20 s for the 12,804 spans of a
+    whisper-medium alignment batch)."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
 
 
 def _busy_ms(spans) -> float:
@@ -924,6 +990,19 @@ def _attention_case(dev, b, t, h, dtype, with_bias, seed):
     return errs, rels
 
 
+def _train_attention_work(b, t, h, d=64):
+    """{kernel: (operations, peak rate, bytes)} of the three training
+    attention kernels on bf16 [B, T, H, d]: the forward's two T x T x d
+    products, dK/dV's four and dQ's three; each bf16 tensor and float32 row
+    statistic it reads or writes once."""
+    product = 2 * b * h * t * t * d   # one T x T x d product
+    tensor = 2 * b * t * h * d        # one bf16 [B, T, H, d] tensor
+    stats = 4 * b * h * t             # one f32 [B, H, T] row statistic
+    return {"attention_fwd": (2 * product, PEAK_BF16, 4 * tensor + stats),
+            "attention_dkdv": (4 * product, PEAK_BF16, 6 * tensor + 2 * stats),
+            "attention_dq": (3 * product, PEAK_BF16, 5 * tensor + 2 * stats)}
+
+
 def phase_train_kernels(dev):
     """(a): the training attention kernels at edge shapes and at the
     training shape; rows for the kernels line (launches filled in later)."""
@@ -1025,21 +1104,19 @@ def phase_train_kernels(dev):
         f"{plain_bwd_ms:.4f} ms; SDPA forward {sdpa_fwd_ms:.4f} ms, backward "
         f"{sdpa_bwd_ms:.4f} ms, forward + backward {sdpa_fwd_ms + sdpa_bwd_ms:.4f} ms")
 
-    product = 2 * b * h * t * t * d   # one T x T x 64 product
-    tensor = 2 * b * t * h * d        # one bf16 [B, T, H, 64] tensor
-    stats = 4 * b * h * t             # one f32 [B, H, T] row statistic
+    work = _train_attention_work(b, t, h)
     rows = []
-    for name, ms, plain_ms, lib_ms, products, nbytes, replaces in (
-            ("attention_fwd", fwd_ms, plain_fwd_ms, sdpa_fwd_ms, 2, 4 * tensor + stats,
+    for name, ms, plain_ms, lib_ms, replaces in (
+            ("attention_fwd", fwd_ms, plain_fwd_ms, sdpa_fwd_ms,
              "lyricalignment_tpu/ops/attention.py:47 (library flash_attention.py:758 "
              "_flash_attention_kernel)"),
-            ("attention_dkdv", dkdv_ms, plain_bwd_ms, sdpa_bwd_ms, 4, 6 * tensor + 2 * stats,
+            ("attention_dkdv", dkdv_ms, plain_bwd_ms, sdpa_bwd_ms,
              "lyricalignment_tpu/ops/attention.py:47 (library flash_attention.py:1121 "
              "_flash_attention_dkv_kernel)"),
-            ("attention_dq", dq_ms, plain_bwd_ms, sdpa_bwd_ms, 3, 5 * tensor + 2 * stats,
+            ("attention_dq", dq_ms, plain_bwd_ms, sdpa_bwd_ms,
              "lyricalignment_tpu/ops/attention.py:47 (library flash_attention.py:1456 "
              "_flash_attention_dq_kernel)")):
-        bound_ms, bound_by = bound(products * product, PEAK_BF16, nbytes)
+        bound_ms, bound_by = bound(*work[name])
         src = "attention.cu" if name == "attention_fwd" else "attention_bwd.cu"
         rows.append(dict(name=name, route="cuda", source=f"lyricalignment_tpu_torch/csrc/{src}",
                          replaces=replaces, max_abs_err=bf16_errs[
@@ -1050,10 +1127,10 @@ def phase_train_kernels(dev):
         log(f"[kernel] {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
         if name == "attention_fwd":
-            report_rate(name, ms, products * product, bound_ms, lib_ms, src, "ILb0ELb1E",
+            report_rate(name, ms, work[name][0], bound_ms, lib_ms, src, "ILb0ELb1E",
                         "SDPA forward")
         else:
-            report_rate(name, ms, products * product, bound_ms, lib_ms, src,
+            report_rate(name, ms, work[name][0], bound_ms, lib_ms, src,
                         f"{name}_kernelILb0E", "SDPA backward (dq, dk, dv together)")
     return rows
 
@@ -2850,12 +2927,13 @@ MESH_B = 16                  # the alignment batch of parts (a) and (b): 16 x 30
 MESH_SPAWN_TIMEOUT = 420     # seconds for both ranks of parts (b) and (c)
 
 
-def _medium_align_model(dev, seed=0, compute_dtype=None):
-    """whisper-medium AlignModel for inference: bf16-resident, tanh GELU,
-    the CTC head of 21129 classes, random weights from ``seed`` (the same
-    on every process) with the head's fc scaled up (sharp emissions: few
-    near-ties), the key-bias route off as under any mesh. ``compute_dtype``
-    float32: the same bf16-rounded weights computed in float32."""
+def _align_model(dev, seed=0, compute_dtype=None, name="medium", onepass=False):
+    """A whisper ``name`` (medium unless said) AlignModel for inference:
+    bf16-resident, tanh GELU, the CTC head of 21129 classes, random weights
+    from ``seed`` (the same on every process) with the head's fc scaled up
+    (sharp emissions: few near-ties), the key-bias route off as under any
+    mesh unless ``onepass``. ``compute_dtype`` float32: the same
+    bf16-rounded weights computed in float32."""
     import torch
 
     from lyricalignment_tpu_torch.models.align_model import (
@@ -2865,8 +2943,8 @@ def _medium_align_model(dev, seed=0, compute_dtype=None):
     )
     from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS, bf16_resident
 
-    wcfg = dataclasses.replace(WHISPER_CONFIGS["medium"], compute_dtype=torch.bfloat16,
-                               fast_gelu=True)
+    wcfg = dataclasses.replace(WHISPER_CONFIGS[name], compute_dtype=torch.bfloat16,
+                               fast_gelu=True, onepass_encoder=onepass)
     with torch.device(dev):
         model = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=C_CTC))
     model.to(dev)
@@ -3054,7 +3132,7 @@ def phase_mesh_world_of_one(dev, card, tmp):
         raise AssertionError(f"part (a) runs a world of one over {backend}, got "
                              f"{dist.get_backend()} x {dist.get_world_size()}")
     records, mel = _mesh_inputs(tmp, dev)
-    base = _medium_align_model(dev)
+    base = _align_model(dev)
     weights = {k: v.clone() for k, v in base.state_dict().items()}
     expected = {"la_log10_mel": 1, "la_bias_attention": base.cfg.whisper.n_audio_layer,
                 "la_row_lse": 1, "la_viterbi": 1}
@@ -3149,7 +3227,7 @@ def _mesh_rank(rank, tmp, device_type):
         # (b): whisper-medium alignment tensor-parallel over the two ranks
         t0 = time.perf_counter()
         records, mel = _mesh_inputs(tmp, dev)
-        model = _medium_align_model(dev)
+        model = _align_model(dev)
         mesh = make_mesh(1, 2, dev.type)
         shard_align_params(model, mesh, tp=True)
         out["heads"] = model.whisper_model.encoder.blocks[0].attn.n_head
@@ -3256,7 +3334,7 @@ def _mesh_seq_rank(rank, tmp, device_type):
             kernels.library()
         seq = sequence_sharding(make_mesh(1, MESH_SEQ_RANKS, dev.type))
         out = {}
-        for name, model in (("medium", _medium_align_model(dev).whisper_model),
+        for name, model in (("medium", _align_model(dev).whisper_model),
                             ("tiny", _mesh_tiny_model(dev).whisper_model)):
             with torch.inference_mode():
                 encode_audio(model, _seq_mel(dev), sequence_sharding=seq)  # first use
@@ -3291,7 +3369,7 @@ def phase_mesh_sequence(dev, card, tmp):
     refs = {}
     with torch.inference_mode():
         for name, kw in (("bf16", {}), ("f32", {"compute_dtype": torch.float32})):
-            model = _medium_align_model(dev, **kw).whisper_model
+            model = _align_model(dev, **kw).whisper_model
             model.embed_audio(_seq_mel(dev))   # first use
             _sync(dev)
             t0 = time.perf_counter()
@@ -3372,7 +3450,7 @@ def phase_mesh(dev, card, tmp):
     # float32 on the same bf16-rounded weights (what bf16 rounding is
     # measured against), (b)'s tiny model, (c)'s train step
     records, mel = _mesh_inputs(tmp, dev)
-    model = _medium_align_model(dev, compute_dtype=torch.float32)
+    model = _align_model(dev, compute_dtype=torch.float32)
     with torch.inference_mode():
         enc32 = model.whisper_model.embed_audio(mel)
     segs32, _, _ = _align(model, records)
@@ -3513,7 +3591,7 @@ def _pipe_rank(rank, tmp, device_type):
         # (a): whisper-medium alignment through the CLI's --mesh-pipe 2 path
         t0 = time.perf_counter()
         records, mel = _mesh_inputs(tmp, dev)
-        model = _medium_align_model(dev)
+        model = _align_model(dev)
         _align(model, records[:2], mesh_pipe=2)  # stages the model; first-use allocations
         out["block_bytes"] = _block_bytes(model, ("encoder",))
         _peak_reset(dev)
@@ -3632,7 +3710,7 @@ def phase_pipe(dev, card, tmp):
     # segments; (b)'s single steps, the tiny one also with the pipeline's
     # micro-batches
     records, mel = _mesh_inputs(tmp, dev)
-    model = _medium_align_model(dev)
+    model = _align_model(dev)
     _align(model, records[:2])
     single_bytes = _block_bytes(model, ("encoder",))
     _peak_reset(dev)
@@ -3641,7 +3719,7 @@ def phase_pipe(dev, card, tmp):
     with torch.inference_mode():
         u_enc = model.whisper_model.embed_audio(mel)
     del model
-    model = _medium_align_model(dev, compute_dtype=torch.float32)
+    model = _align_model(dev, compute_dtype=torch.float32)
     with torch.inference_mode():
         enc32 = model.whisper_model.embed_audio(mel)
     segs32, _, _ = _align(model, records)
@@ -3981,6 +4059,739 @@ def phase_orbax(dev, card, tmp):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the large family (whisper-large, large-v3, large-v3-turbo)
+# ---------------------------------------------------------------------------
+
+LARGE_ITERS = 3          # timed alignment batches of part (a), after one warm-up
+LARGE_STEPS = 2          # timed train steps of part (d), after one warm-up
+LARGE_SERVE = (9.0, 17.5, 26.0, 29.4, 45.0)  # part (b)'s WAV requests, seconds
+# bench.py's transcribe point (bench.py:161-214): 16 windows, beam 5, 64 new
+# tokens, decode group 3; greedy tokens of the first 2 held to float32
+TURBO_BEAM, TURBO_MAX_NEW, TURBO_GROUP, TURBO_HELD = 5, 64, 3, 2
+
+
+def _large_counts(counts, expected, part):
+    if counts != expected:
+        raise AssertionError(f"{part} launched {counts}, expected {expected}")
+
+
+def phase_large_align(dev, card):
+    """(a): whisper-large at bench.py's align_large point (bf16-resident,
+    tanh GELU, the one-pass encoder, B = 16 x 30 s, 48 labels, the CTC head
+    of 21129 classes, viterbi_align_fused), and whisper-medium on the same
+    inputs; each against its bf16-rounded weights computed in float32.
+    Returns the launches of the timed large batches."""
+    import torch
+
+    from lyricalignment_tpu_torch import EMBED_FRAMES, N_FRAMES, kernels
+    from lyricalignment_tpu_torch.models.align_model import forward_from_audio
+    from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
+    from lyricalignment_tpu_torch.ops.viterbi import frames_to_seconds, viterbi_align_fused
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    audio = torch.randn(B, SECONDS * 16000, device=dev, generator=g) * 0.1
+    frames = torch.full((B,), EMBED_FRAMES, dtype=torch.int32, device=dev)
+    labels = torch.randint(2, 400, (B, L_BENCH), device=dev, generator=g, dtype=torch.int32)
+    num_labels = torch.full((B,), L_BENCH, dtype=torch.int32, device=dev)
+
+    @torch.inference_mode()
+    def align_batch(model):
+        # the serving path's own calls, as phase "throughput" makes them
+        h, _ = forward_from_audio(model, audio, frame_lengths=frames, mel_lengths=2 * frames,
+                                  align_head_output="hidden")
+        fc = model.align_rnn.fc
+        on, off = viterbi_align_fused(h, fc.weight, fc.bias, labels, num_labels, frames, "ctc")
+        return frames_to_seconds(on, off)
+
+    stats = {}
+    for name in ("medium", "large"):
+        t0 = time.perf_counter()
+        out = {}
+        for kind, dtype in (("f32", torch.float32), ("bf16", None)):
+            model = _align_model(dev, compute_dtype=dtype, name=name, onepass=True)
+            with torch.inference_mode():
+                enc = model.whisper_model.embed_audio(pad_or_trim(log_mel(audio), N_FRAMES))
+            out[kind] = (enc, align_batch(model))
+            if kind == "f32":
+                del model
+                torch.cuda.empty_cache()
+        (enc32, seg32), (enc16, seg16) = out["f32"], out["bf16"]
+        stats[name] = (rel_l2(enc16, enc32), _within_frame(seg16.tolist(), seg32.tolist()))
+        del out, enc32, enc16, seg32
+        log(f"[large-a] whisper-{name} bf16: encoder rel-L2 against float32 on the same "
+            f"bf16-rounded weights {stats[name][0]:.3e}, onsets/offsets within a frame of "
+            f"float32's {stats[name][1]:.4f} ({time.perf_counter() - t0:.1f} s with the builds)")
+        if name == "medium":
+            del model
+            torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(LARGE_ITERS):
+        seg16 = align_batch(model)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    n_layer = model.cfg.whisper.n_audio_layer
+    n_params = sum(p.numel() for p in model.parameters())
+    on, off = seg16[..., 0].double(), seg16[..., 1].double()
+    ordered = bool(torch.isfinite(seg16).all() and (on < off).all()
+                   and (on[:, 1:] >= off[:, :-1] - 1e-9).all())
+    log(f"[large-a] whisper-large ({n_params / 1e6:.1f} M parameters) bf16 B={B} x {SECONDS} s "
+        f"L={L_BENCH} CTC: {LARGE_ITERS * B * SECONDS / elapsed:.2f} audio-s/s "
+        f"({elapsed / LARGE_ITERS * 1e3:.1f} ms a batch, mean of {LARGE_ITERS} after a "
+        f"warm-up), max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on "
+        f"{card}; encoder rel-L2 {stats['large'][0]:.3e} (medium's {stats['medium'][0]:.3e}, "
+        f"ratio {stats['large'][0] / stats['medium'][0]:.3f}; <= 2); within a frame "
+        f"{stats['large'][1]:.4f} (medium's {stats['medium'][1]:.4f}; at most 0.02 below); "
+        f"onsets finite and ordered: {ordered}; launches in {LARGE_ITERS} batches {counts}")
+    _large_counts(counts, {"la_log10_mel": LARGE_ITERS, "la_bias_attention": n_layer * LARGE_ITERS,
+                           "la_row_lse": LARGE_ITERS, "la_viterbi": LARGE_ITERS}, "(a)")
+    if not ordered or stats["large"][0] > 2 * stats["medium"][0] or (
+            stats["large"][1] < stats["medium"][1] - 0.02):
+        raise AssertionError("(a): whisper-large bf16 strays from float32 beyond medium's")
+    return counts
+
+
+def phase_large_serve(dev, card, tmp):
+    """(b): a large-v3 model dir (seeded weights, written as la-convert
+    writes one) through ``load_model_dir`` and ``LyricAligner.align_many``
+    on the card; then the 128-band log-mel kernel at B = 16 x 30 s against
+    the plain version in float64, and its time beside the bound and
+    ``torch.stft`` + mel. Returns (the requests' launches, the log-mel's
+    numbers)."""
+    import torch
+
+    from lyricalignment_tpu_torch import HOP_LENGTH, kernels
+    from lyricalignment_tpu_torch.api import LyricAligner
+    from lyricalignment_tpu_torch.cli.common import build_model_config, load_model_dir
+    from lyricalignment_tpu_torch.cli.convert_checkpoint import _write_model_dir
+    from lyricalignment_tpu_torch.models.align_model import AlignModel, init_weights
+    from lyricalignment_tpu_torch.ops import mel
+    from lyricalignment_tpu_torch.text.bert_tokenizer import BertWordPieceTokenizer
+
+    mcfg = build_model_config("large-v3", output_dim=C_CTC)
+    model_dir = os.path.join(tmp, "large_v3")
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = AlignModel(mcfg)
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    _write_model_dir(model_dir, "large-v3", True, model.state_dict(), "best")
+    write_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    # what load_model_dir does first: the float32 model built on the CPU
+    t0 = time.perf_counter()
+    model = AlignModel(mcfg)
+    build_s = time.perf_counter() - t0
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, model, _ = load_model_dir(model_dir, device=str(dev), use_bf16=True, fast_gelu=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    wcfg = model.cfg.whisper
+
+    vocab, table = _vocab_and_table()
+    aligner = LyricAligner(model, BertWordPieceTokenizer(vocab=vocab), table, use_ctc=True,
+                           batch_size=4)
+    requests = _write_requests(tmp, LARGE_SERVE, seed=13)
+    aligner.align_many(requests[:1])  # first-use allocations outside the window
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = aligner.align_many(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    _check_segments(results, requests, LARGE_SERVE)
+    size = os.path.getsize(os.path.join(model_dir, "best_model.pt"))
+    log(f"[large-b] large-v3 ({wcfg.n_mels} mel bands, vocabulary {wcfg.n_vocab}) model dir: "
+        f"built on the card and written in {write_s:.2f} s ({size / 1e9:.3f} GB .pt); "
+        f"load_model_dir(cuda, bf16) "
+        f"{load_s:.2f} s, of which the float32 AlignModel's CPU build {build_s:.2f} s; "
+        f"align_many of {len(requests)} requests ({sum(LARGE_SERVE):.1f} s of audio) in "
+        f"{wall:.3f} s, max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"on {card}; launches {counts}")
+    # one launch of each a batch, the attention one a layer
+    batches = counts.get("la_log10_mel", 0)
+    _large_counts(counts, {"la_log10_mel": batches, "la_row_lse": batches, "la_viterbi": batches,
+                           "la_bias_attention": wcfg.n_audio_layer * batches}, "(b)'s requests")
+    if not batches:
+        raise AssertionError("(b): the requests launched no kernel")
+    del aligner, model
+    torch.cuda.empty_cache()
+
+    # the 128-band log-mel of the large-v3 frontend at the batch's shape,
+    # against the plain version run in float64 within 8 decades of the peak
+    # (log_mel's clamp), as phase "transcribe" (a) holds the whole-song one
+    n_mels = wcfg.n_mels
+    g = torch.Generator(device=dev).manual_seed(17)
+    audio = torch.randn(B, SECONDS * 16000, device=dev, generator=g) * 0.1
+    padded = mel.reflect_pad(audio).contiguous()
+    n_frames = audio.shape[1] // HOP_LENGTH
+    got = mel.log10_mel(padded, n_frames, n_mels)
+    ref = mel.log10_mel_plain(padded.double(), n_frames, n_mels)
+    floor = ref.max() - 8.0
+    err = (torch.maximum(got.double(), floor) - torch.maximum(ref, floor)).abs().max().item()
+    plain32_err = (torch.maximum(mel.log10_mel_plain(padded, n_frames, n_mels).double(), floor)
+                   - torch.maximum(ref, floor)).abs().max().item()
+    del ref
+    ops, nbytes = _mel_work(padded, n_frames, n_mels)
+    bound_ms, bound_by = bound(ops, PEAK_F32, nbytes)
+    ms = time_ms(lambda: mel.log10_mel(padded, n_frames, n_mels), reps=20)
+    lib_ms = time_ms(_stft_mel(audio, n_mels), reps=20)
+    log(f"[large-b] log10_mel {B} x {SECONDS} s -> {n_mels} x {n_frames}: kernel vs the "
+        f"float64 plain version {err:.3e} within 8 decades of the peak (atol 1e-4; the "
+        f"float32 plain version {plain32_err:.3e}); kernel_ms={ms:.4f} bound_ms="
+        f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
+        f"{bound_ms / ms:.3f} of the bound; torch.stft + mel {lib_ms:.4f} ms; {card}")
+    if got.shape != (B, n_mels, n_frames) or not err <= 1e-4:
+        raise AssertionError("(b): the 128-band log-mel disagrees with its float64 version")
+    shape = f"[{B}, {padded.shape[1]}] -> [{B}, {n_mels}, {n_frames}]"
+    return counts, {"log10_mel": dict(large_shape=shape, large_ms=ms, large_bound_ms=bound_ms,
+                                      large_library_ms=lib_ms, large_max_abs_err=err)}
+
+
+def phase_large_turbo(dev, card, tmp):
+    """(c): large-v3-turbo at bench.py's transcribe point (16 windows of 30
+    s, beam 5, 64 new tokens, decode group 3, a <|notimestamps|> prompt in
+    the v3 layout), bf16-resident; then greedy tokens of 2 windows against
+    the same weights in float32. Returns the launches of the beam batch."""
+    import torch
+
+    from lyricalignment_tpu_torch import N_FRAMES, kernels
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import (
+        WHISPER_CONFIGS,
+        Whisper,
+        bf16_resident,
+        decode_step,
+        init_decode_cache,
+        prime_decode_cache,
+    )
+    from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
+    from lyricalignment_tpu_torch.text.whisper_tokenizer import (
+        WhisperTokenizer,
+        num_languages_for_vocab,
+    )
+
+    t0 = time.perf_counter()
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["large-v3-turbo"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True, onepass_encoder=True)
+    with torch.device(dev):
+        align = AlignModel(AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=64))
+    align.to(dev)
+    init_weights(align, torch.Generator(device=dev).manual_seed(0))
+    model = bf16_resident(align.whisper_model).eval()
+    del align
+    ranks = _write_ranks(tmp)
+    tok = WhisperTokenizer(bpe_path=ranks, num_languages=num_languages_for_vocab(wcfg.n_vocab))
+    v2 = WhisperTokenizer(bpe_path=ranks)
+    # yue, the 100th language, shifts every special id after the language
+    # block up by one; sot, eot and <|zh|> (in the block) keep theirs
+    ids = {name: (tok.special_tokens[name], v2.special_tokens[name])
+           for name in ("<|startoftranscript|>", "<|zh|>", "<|transcribe|>",
+                        "<|notimestamps|>")}
+    shift = {name: a - b for name, (a, b) in ids.items()}
+    if tok.n_vocab != wcfg.n_vocab or tok.eot != v2.eot or shift != {
+            "<|startoftranscript|>": 0, "<|zh|>": 0, "<|transcribe|>": 1, "<|notimestamps|>": 1}:
+        raise AssertionError(f"(c): the v3 special ids {ids} against v2's")
+    prompt_ids = list(tok.sot_sequence) + [tok.no_timestamps]
+    prompt = torch.tensor([prompt_ids] * B, device=dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    audio = torch.randn(B, SECONDS * 16000, device=dev, generator=g) * 0.1
+    log(f"[large-c] large-v3-turbo bf16 ({wcfg.n_audio_layer} encoder, {wcfg.n_text_layer} "
+        f"decoder layers) built in {time.perf_counter() - t0:.1f} s; prompt {prompt_ids}; "
+        f"(v3, v2) ids {ids}")
+
+    steps = [0]
+    real_step = beam_mod.decode_step
+
+    def counted_step(*a):
+        steps[0] += 1
+        return real_step(*a)
+
+    def encode(whisper, n=B):
+        mel = log_mel(audio[:n], n_mels=wcfg.n_mels)
+        return whisper.embed_audio(pad_or_trim(mel, N_FRAMES))
+
+    @torch.no_grad()
+    def run(max_new):
+        """encode then beam_search: CUDA-event ms of each, a prime alone on
+        the same windows, the steps run and the host wall."""
+        marks = {n: (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for n in ("encode", "call", "prime")}
+        steps[0] = 0
+        t0 = time.perf_counter()
+        marks["encode"][0].record()
+        xa = encode(model)
+        marks["encode"][1].record()
+        marks["call"][0].record()
+        tokens, _ = beam_mod.beam_search(model, wcfg, xa, prompt, beam_size=TURBO_BEAM,
+                                         max_new_tokens=max_new, eot=tok.eot, group=TURBO_GROUP)
+        marks["call"][1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_steps = steps[0]
+        marks["prime"][0].record()
+        cache = init_decode_cache(model, wcfg, xa, prompt.shape[1], max_new, beam_size=TURBO_BEAM)
+        prime_decode_cache(model, wcfg, prompt, cache)
+        marks["prime"][1].record()
+        torch.cuda.synchronize()
+        ms = {n: s.elapsed_time(e) for n, (s, e) in marks.items()}
+        return xa, tokens, ms, n_steps, wall
+
+    beam_mod.decode_step = counted_step
+    try:
+        run(4)  # first-use allocations
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        xa, tokens, ms, n_steps, wall = run(TURBO_MAX_NEW)
+        counts = dict(kernels.launches)
+    finally:
+        beam_mod.decode_step = real_step
+    decode_ms = ms["call"] - ms["prime"]
+    log(f"[large-c] beam_search beam {TURBO_BEAM}, {B} windows of {SECONDS} s, "
+        f"max_new_tokens {TURBO_MAX_NEW}, decode group {TURBO_GROUP}: encode {ms['encode']:.2f} "
+        f"ms, beam_search {ms['call']:.1f} ms = prime {ms['prime']:.2f} ms (timed alone) + "
+        f"decode {decode_ms:.1f} ms in {n_steps} steps = {decode_ms / max(n_steps, 1):.3f} ms a "
+        f"step; {B / wall:.3f} windows/s ({wall:.3f} s wall, encode + beam_search); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}; "
+        f"launches {counts}")
+    _large_counts(counts, {"la_log10_mel": 1, "la_bias_attention": wcfg.n_audio_layer}, "(c)")
+    if tokens.shape != (B, TURBO_MAX_NEW) or not 0 < n_steps <= TURBO_MAX_NEW:
+        raise AssertionError(f"(c): tokens {tuple(tokens.shape)} in {n_steps} steps")
+
+    # greedy tokens of 2 windows, bf16 against the same weights in float32
+    with torch.device(dev):
+        f32 = Whisper(dataclasses.replace(wcfg, compute_dtype=torch.float32))
+    f32.to(dev).load_state_dict(model.state_dict())
+    f32.eval()
+    held = {}
+    with torch.no_grad():
+        xa32 = encode(f32, TURBO_HELD)
+        for name, whisper, feats in (("bf16", model, xa[:TURBO_HELD]), ("f32", f32, xa32)):
+            held[name] = beam_mod.greedy_decode(whisper, wcfg, feats, prompt[:TURBO_HELD],
+                                                max_new_tokens=TURBO_MAX_NEW, eot=tok.eot)
+        same = held["bf16"] == held["f32"]
+        agree = [int(row.long().cumprod(0).sum()) for row in same]
+        # phase "transcribe" (b)'s check: a KV-cached bf16 step's logits
+        # against the teacher-forced decoder on the same prefix (the bf16
+        # greedy tokens), here the float32 one on the float32 features
+        n_fed = min(5, TURBO_MAX_NEW - 1)
+        tokens16 = held["bf16"]
+        cache = init_decode_cache(model, wcfg, xa[:TURBO_HELD], prompt.shape[1], n_fed + 1)
+        _, _, cache = prime_decode_cache(model, wcfg, prompt[:TURBO_HELD], cache)
+        for i in range(n_fed + 1):
+            step_logits, cache = decode_step(model, wcfg, tokens16[:, i: i + 1], cache)
+        fed = torch.cat([prompt[:TURBO_HELD], tokens16[:, : n_fed + 1]], 1)
+        ref16 = model.decoder_logits(fed, xa[:TURBO_HELD])[:, -1]
+        ref32 = f32.decoder_logits(fed, xa32)[:, -1]
+        rel16, rel32 = rel_l2(step_logits, ref16), rel_l2(step_logits, ref32)
+    log(f"[large-c] greedy_decode of {TURBO_HELD} windows, bf16 against float32 on the same "
+        f"weights: {agree} of {TURBO_MAX_NEW} tokens agree before the first divergence "
+        f"(bf16 {tokens16[:, :8].tolist()}, float32 {held['f32'][:, :8].tolist()}); decode "
+        f"step {n_fed + 1} logits vs teacher-forced decoder_logits on the bf16 prefix: float32 "
+        f"rel_l2 {rel32:.3e}, bf16 {rel16:.3e} (bound 3e-2)")
+    if not (rel16 <= 3e-2 and rel32 <= 3e-2):
+        raise AssertionError("(c): the KV-cached step strays from the teacher-forced decoder")
+    del model, f32, xa, xa32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _large_train_model(dev, freeze):
+    """whisper-large at bench_train's recipe (bf16 compute, tanh GELU, the
+    CTC head of 21129 classes, align CE + CTC + transcript CE), random
+    weights from a seed; ``freeze``: the encoder frozen and bf16-resident,
+    as bench.py's one-chip large recipe has it."""
+    import torch
+
+    from lyricalignment_tpu_torch.models.align_model import (
+        AlignModel,
+        AlignModelConfig,
+        init_weights,
+    )
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS, bf16_resident
+
+    wcfg = dataclasses.replace(WHISPER_CONFIGS["large"], compute_dtype=torch.bfloat16,
+                               fast_gelu=True)
+    cfg = AlignModelConfig(whisper=wcfg, hidden_dim=384, output_dim=C_CTC,
+                           train_transcript=True, freeze_encoder=freeze)
+    with torch.device(dev):
+        model = AlignModel(cfg)
+    model.to(dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    if freeze:
+        bf16_resident(model.whisper_model.encoder)
+    return model
+
+
+def phase_large_train(dev, card, medium_peak_gb=None):
+    """(d): the one-card large recipe (bench.py:240-259): freeze + remat, a
+    bf16-resident frozen encoder, 8 micro-batches of 2 x 30 s, bf16
+    accumulation and Adam mu, unfused losses; a warm-up step, then 2 timed;
+    then (d') one step of it with the fused losses. (e): the same batch
+    unfrozen with remat, one step, held to a step without remat on the
+    same weights. Returns the launches of (d), (d') and (e)."""
+    import numpy as np
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.models.align_model import init_weights
+    from lyricalignment_tpu_torch.train.trainer import (
+        TrainConfig,
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+        to_device,
+    )
+
+    t0 = time.perf_counter()
+    model = _large_train_model(dev, freeze=True)
+    n_layer = model.cfg.whisper.n_audio_layer
+    # warmup_steps 1: the untimed first update has lr 0, the timed ones lr > 0
+    tcfg = TrainConfig(accum_grad_steps=ACCUM, use_ctc=True, vocab_size=C_CTC - 1,
+                       warmup_steps=1, total_steps=2000, remat=True,
+                       grad_accum_dtype=torch.bfloat16, adam_mu_dtype=torch.bfloat16,
+                       freeze_encoder=True)
+    state, tx = init_train_state(model, tcfg)
+    step_fn = make_train_step(tcfg, tx)
+    stacked = to_device(_train_batch(np.random.default_rng(0), ACCUM, TRAIN_B,
+                                     model.cfg.whisper.n_vocab, 400), dev)
+    encoder = "whisper_model.encoder."
+    params = dict(model.named_parameters())
+    stateful = [n for n in (*state.opt_state.mu, *state.opt_state.nu) if n.startswith(encoder)]
+    frozen = {n: p.detach().clone() for n, p in params.items() if n.startswith(encoder)}
+    log(f"[large-d] whisper-large, frozen bf16 encoder: {len(params)} tensors "
+        f"({sum(p.numel() for p in params.values()) / 1e6:.1f} M parameters), "
+        f"{len(state.opt_state.mu)} with Adam state, set up in {time.perf_counter() - t0:.1f} s")
+    if stateful or len(state.opt_state.mu) != len(params) - len(frozen):
+        raise AssertionError(f"(d): optimizer state for the frozen encoder: {stateful[:3]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses = step_fn(state, stacked)
+    torch.cuda.synchronize()
+    log(f"[large-d] warm-up step (lr 0) {time.perf_counter() - t0:.3f} s, losses "
+        f"{json.dumps({k: round(float(v), 5) for k, v in losses.items()})}")
+    trained = {n: p.detach().clone() for n, p in params.items() if n not in frozen}
+    kernels.reset_launch_counts()
+    times, all_losses = [], []
+    for _ in range(LARGE_STEPS):
+        t0 = time.perf_counter()
+        state, losses = step_fn(state, stacked)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        all_losses.append({k: float(v) for k, v in losses.items()})
+    counts = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_s = sum(times) / LARGE_STEPS
+    unchanged = [n for n, p in frozen.items() if not torch.equal(params[n], p)]
+    still = [n for n, p in trained.items() if torch.equal(params[n], p)]
+    log(f"[large-d] freeze + remat, {ACCUM} x {TRAIN_B} x {SECONDS} s: step ms "
+        f"{[round(x * 1e3, 1) for x in times]} (mean {mean_s * 1e3:.1f}), "
+        f"{ACCUM * TRAIN_B * SECONDS / mean_s:.2f} trained audio-s/s, max_memory_allocated "
+        f"{peak_gb:.2f} GB on {card}; losses {json.dumps(all_losses)}; encoder tensors changed "
+        f"{len(unchanged)} of {len(frozen)}, trained tensors unmoved {len(still)} of "
+        f"{len(trained)} {still[:3]}; launches in {LARGE_STEPS} steps {counts}")
+    # the frozen encoder runs under no_grad: its attention forward takes the
+    # launcher that writes no row statistics (la_bias_attention, no bias),
+    # and remat recomputes nothing of it
+    _large_counts(counts, {"la_log10_mel": LARGE_STEPS * ACCUM,
+                           "la_bias_attention": LARGE_STEPS * ACCUM * n_layer}, "(d)")
+    if not all(math.isfinite(v) for row in all_losses for v in row.values()):
+        raise AssertionError("(d): non-finite training loss")
+    if unchanged or still:
+        raise AssertionError(f"(d): encoder changed {unchanged[:3]}, unmoved {still[:3]}")
+    del frozen, trained
+
+    # (d') the recipe with the fused losses (phase "train" (e)'s check of
+    # the align losses, fused against unfused on the first micro-batch),
+    # then one fused step: the row LSE, its backward and the reduced CTC
+    # kernels on the large head's hidden
+    fused_cfg = dataclasses.replace(tcfg, fused_losses=True)
+    micro = {k: v[0] for k, v in stacked.items()}
+    evals = {name: {k: float(v) for k, v in make_eval_step(cfg)(model, micro).items()}
+             for name, cfg in (("fused", fused_cfg), ("unfused", tcfg))}
+    loss_rel = {k: abs(evals["fused"][k] - evals["unfused"][k]) / abs(evals["unfused"][k])
+                for k in ("align_ce", "align_ctc")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses = make_train_step(fused_cfg, tx)(state, stacked)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    fused_counts = dict(kernels.launches)
+    log(f"[large-d] fused losses, first micro-batch: align CE / CTC rel diff to unfused "
+        f"{loss_rel['align_ce']:.2e} / {loss_rel['align_ctc']:.2e} (<= 1e-4); one fused step "
+        f"{fused_ms:.1f} ms, max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB on {card}; losses {json.dumps({k: float(v) for k, v in losses.items()})}; "
+        f"launches {fused_counts}")
+    _large_counts(fused_counts, {
+        "la_log10_mel": ACCUM, "la_bias_attention": ACCUM * n_layer,
+        **{name: ACCUM * n for name, n in FUSED_KERNELS.items() if name not in TRAIN_KERNELS}},
+        "(d') the fused step")
+    if max(loss_rel.values()) > 1e-4 or not all(math.isfinite(float(v))
+                                                for v in losses.values()):
+        raise AssertionError("(d'): the fused losses disagree with the unfused ones")
+    del model, state, tx, step_fn, params
+    torch.cuda.empty_cache()
+
+    # (e) unfrozen, the same batch: one step with remat, then one without on
+    # the same weights (the same seed drawn again) and the same dropout
+    model = _large_train_model(dev, freeze=False)
+    watch = ("whisper_model.encoder.blocks.0.attn.query.weight",
+             f"whisper_model.decoder.blocks.{model.cfg.whisper.n_text_layer - 1}.mlp.0.weight",
+             "align_rnn.fc.weight")
+    runs = {}
+    for remat in (True, False):
+        init_weights(model, torch.Generator(device=dev).manual_seed(0))
+        etcfg = dataclasses.replace(tcfg, warmup_steps=0, remat=remat, freeze_encoder=False)
+        state, tx = init_train_state(model, etcfg)
+        params = dict(model.named_parameters())
+        before = {n: params[n].detach().clone() for n in watch}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            state, losses = make_train_step(etcfg, tx)(state, stacked)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            if remat:
+                raise
+            log(f"[large-e] the step without remat does not fit: "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated at the failure")
+            break
+        runs[remat] = dict(ms=(time.perf_counter() - t0) * 1e3, counts=dict(kernels.launches),
+                           peak=torch.cuda.max_memory_allocated() / 1e9,
+                           losses={k: float(v) for k, v in losses.items()},
+                           update={n: params[n].detach() - before[n] for n in watch})
+        if remat:
+            # the optimizer update alone, given float32 gradients as the step
+            # gives it them: how far its temporaries lift the peak
+            grads = {n: torch.zeros_like(p) for n, p in params.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tx.update(params, grads, state.opt_state)
+            torch.cuda.synchronize()
+            runs[remat]["update_gb"] = ((torch.cuda.max_memory_allocated() - base) / 1e9,
+                                        base / 1e9)
+            del grads
+        del state, tx, params, before
+        torch.cuda.empty_cache()
+    r = runs[True]
+    medium_text = (f"medium's {medium_peak_gb:.2f} GB in phase \"train\" (c)" if medium_peak_gb
+                   else "medium's not measured in this run")
+    log(f"[large-e] unfrozen + remat, {ACCUM} x {TRAIN_B} x {SECONDS} s, one step: "
+        f"{r['ms']:.1f} ms, {ACCUM * TRAIN_B * SECONDS / r['ms'] * 1e3:.2f} trained audio-s/s, "
+        f"max_memory_allocated {r['peak']:.2f} GB ({medium_text}) on {card}; the optimizer "
+        f"update alone lifts the peak {r['update_gb'][0]:.2f} GB above the {r['update_gb'][1]:.2f} "
+        f"GB it is given (parameters, moments and float32 gradients); losses "
+        f"{json.dumps(r['losses'])}; launches {r['counts']}")
+    _large_counts(r["counts"], {"la_log10_mel": ACCUM,
+                                "la_attention_fwd": 2 * ACCUM * n_layer,
+                                "la_attention_dkdv": ACCUM * n_layer,
+                                "la_attention_dq": ACCUM * n_layer}, "(e) with remat")
+    if not all(math.isfinite(v) for v in r["losses"].values()):
+        raise AssertionError("(e): non-finite training loss")
+    if False in runs:
+        n = runs[False]
+        loss_rel = max(abs(r["losses"][k] - v) / max(abs(v), 1e-6) for k, v in n["losses"].items())
+        upd = {k: rel_l2(r["update"][k], n["update"][k]) for k in watch}
+        log(f"[large-e] without remat on the same weights and batch: {n['ms']:.1f} ms, "
+            f"max_memory_allocated {n['peak']:.2f} GB (remat {r['peak']:.2f} GB); losses max "
+            f"rel diff {loss_rel:.2e} (<= 1e-5), equal: {r['losses'] == n['losses']}; update "
+            f"rel-L2 remat vs not {json.dumps({k: f'{v:.2e}' for k, v in upd.items()})}; "
+            f"launches {n['counts']}")
+        _large_counts(n["counts"], {"la_log10_mel": ACCUM, "la_attention_fwd": ACCUM * n_layer,
+                                    "la_attention_dkdv": ACCUM * n_layer,
+                                    "la_attention_dq": ACCUM * n_layer}, "(e) without remat")
+        if loss_rel > 1e-5:
+            raise AssertionError("(e): remat changes the step's losses")
+    del model, runs, stacked
+    torch.cuda.empty_cache()
+    return counts, fused_counts, r["counts"]
+
+
+def phase_large_cli(dev, card, tmp):
+    """(f): the train CLI at large-v3-turbo with a frozen bf16 encoder for 2
+    updates on synthetic songs, then its best_model through the alignment
+    CLI."""
+    import torch
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.cli import inference_alignment
+    from lyricalignment_tpu_torch.models.whisper import WHISPER_CONFIGS
+
+    vocab, _ = _vocab_and_table()
+    lengths = [6.0, 9.5, 12.0, 14.5]
+    requests = _write_requests(tmp, lengths, seed=23)
+    records = []
+    for (path, lyric), sec in zip(requests, lengths):
+        step = (sec - 0.5) / len(lyric)
+        records.append({"song_path": path, "lyric": lyric,
+                        "on_offset": [[0.2 + i * step, 0.2 + (i + 0.8) * step]
+                                      for i in range(len(lyric))]})
+    data, one = os.path.join(tmp, "turbo_train.json"), os.path.join(tmp, "turbo_one.json")
+    for path, recs in ((data, records), (one, records[:1])):
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(recs, f, ensure_ascii=False)
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(t for t, _ in sorted(vocab.items(), key=lambda kv: kv[1])))
+    save = os.path.join(tmp, "turbo_result")
+    cmd = [sys.executable, "-m", "lyricalignment_tpu_torch.cli.train_multitask",
+           "--train-data", data, "--dev-data", data, "--whisper-model", "large-v3-turbo",
+           "--freeze-encoder", "--bf16", "--fast-gelu", "--bf16-grad-accum", "--bf16-adam-mu",
+           "--train-alignment", "--train-transcript", "--use-ctc-loss",
+           "--train-batch-size", "2", "--dev-batch-size", "4", "--accum-grad-steps", "2",
+           "--train-steps", "2", "--eval-steps", "2", "--warmup-steps", "0",
+           "--bert-vocab", vocab_path, "--save-dir", save, "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=600)
+    log(f"[large-f] {' '.join(cmd[1:3])} --whisper-model large-v3-turbo --freeze-encoder "
+        f"--bf16 ... exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-10:]:
+        log(f"[large-f]   {line}")
+    if proc.returncode != 0:
+        raise AssertionError("(f): the train CLI failed")
+    if not os.path.exists(os.path.join(save, "best_model.pt")):
+        raise AssertionError("(f): the train CLI wrote no best_model.pt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mae = inference_alignment.main(["-f", one, "--model-dir", save, "--use-ctc-loss", "--bf16",
+                                    "--fast-gelu", "--bert-vocab", vocab_path,
+                                    "--device", dev.type])
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    n_layer = WHISPER_CONFIGS["large-v3-turbo"].n_audio_layer
+    log(f"[large-f] alignment CLI on the written best_model: {time.perf_counter() - t0:.1f} s "
+        f"with the load, MAE {mae:.4f} s on a {lengths[0]} s song, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}; launches {counts}")
+    _large_counts(counts, {"la_log10_mel": 1, "la_bias_attention": n_layer, "la_row_lse": 1,
+                           "la_viterbi": 1}, "(f)'s alignment CLI")
+    if not math.isfinite(mae):
+        raise AssertionError("(f): the served checkpoint's MAE is not finite")
+
+
+def phase_large_kernels(dev, card):
+    """The attention kernels at the large family's shapes: la_bias_attention
+    at B x H = 16 x 20, T = 1500 (an alignment batch), the training trio at
+    B x H = 2 x 20 (a train micro-batch), each against its plain version,
+    timed beside its bound and SDPA. Returns {row name: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from lyricalignment_tpu_torch.ops import attention
+
+    h, t, d = 20, 1500, 64
+    g = torch.Generator(device=dev).manual_seed(41)
+    bias = torch.zeros(1, t, device=dev)
+    q, k, v = (torch.randn(B, t, h, d, device=dev, generator=g).mul_(0.35).to(torch.bfloat16)
+               for _ in range(3))
+    got = attention.onepass_self_attention(q, k, v, bias)
+    ref = attention.einsum_bias_attention(q, k, v, bias)
+    rel, err = rel_l2(got, ref), (got.float() - ref.float()).abs().max().item()
+    del got, ref
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = time_ms(lambda: attention.onepass_self_attention(q, k, v, bias), reps=20)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias.to(torch.bfloat16), scale=1.0), reps=20)
+    bound_ms, bound_by = bound(4 * B * h * t * t * d, PEAK_BF16, 2 * 4 * q.numel() + 4 * t)
+    out = {"bias_attention": dict(large_shape=f"bf16 B={B} H={h} T={t}", large_ms=ms,
+                                  large_bound_ms=bound_ms, large_library_ms=lib_ms,
+                                  large_max_abs_err=err)}
+    log(f"[large-kernels] bias_attention bf16 B={B} H={h} T={t}: rel_l2 {rel:.3e} against the "
+        f"plain version (<= 1e-2); kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}), "
+        f"{bound_ms / ms:.3f} of the bound; SDPA {lib_ms:.4f} ms; {card}")
+    if rel > 1e-2:
+        raise AssertionError("bias_attention at 20 heads disagrees with its plain version")
+    del q, k, v, qt, kt, vt
+
+    errs, rels = _attention_case(dev, TRAIN_B, t, h, torch.bfloat16, False, seed=43)
+    log(f"[large-kernels] training trio bf16 B={TRAIN_B} H={h} T={t} against autograd "
+        f"through the plain einsum: max_abs {json.dumps(errs)} rel_l2 {json.dumps(rels)} "
+        f"(rel-L2 <= 1e-2, lse <= 1e-4)")
+    if errs["lse"] > 1e-4 or max(rels[n] for n in ("out", "dq", "dk", "dv")) > 1e-2:
+        raise AssertionError("the training attention kernels disagree at 20 heads")
+    q, k, v, dout = (torch.randn(TRAIN_B, t, h, d, device=dev, generator=g).mul_(0.4)
+                     .to(torch.bfloat16) for _ in range(4))
+    o, lse = attention.attention_forward(q, k, v, None, with_lse=True)
+    delta = attention.attention_delta(o, dout)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), reps=20)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+    dout_t = dout.transpose(1, 2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                                   retain_graph=True), reps=20)
+    work = _train_attention_work(TRAIN_B, t, h, d)
+    for name, fn, lib_ms, err_key in (
+            ("attention_fwd", lambda: attention.attention_forward(q, k, v, None, with_lse=True),
+             sdpa_fwd, "out"),
+            ("attention_dkdv", lambda: attention.attention_dkdv(q, k, v, dout, lse, delta),
+             sdpa_bwd, "dk"),
+            ("attention_dq", lambda: attention.attention_dq(q, k, v, dout, lse, delta),
+             sdpa_bwd, "dq")):
+        ms = time_ms(fn, reps=20)
+        bound_ms, bound_by = bound(*work[name])
+        out[name] = dict(large_shape=f"bf16 B={TRAIN_B} H={h} T={t}", large_ms=ms,
+                         large_bound_ms=bound_ms, large_library_ms=lib_ms,
+                         large_max_abs_err=errs[err_key])
+        log(f"[large-kernels] {name} bf16 B={TRAIN_B} H={h} T={t}: kernel_ms={ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}), {bound_ms / ms:.3f} of the bound; "
+            f"{'SDPA forward' if name == 'attention_fwd' else 'SDPA backward (dq, dk, dv)'} "
+            f"{lib_ms:.4f} ms; {card}")
+    return out
+
+
+# the parts whose launches each row of the kernels line carries
+LARGE_PARTS = ("large_align", "large_v3_serve", "turbo_transcribe", "large_train_freeze",
+               "large_train_fused", "large_train_remat")
+
+
+def phase_large(dev, card, tmp, medium_peak_gb=None):
+    """Phase 12 (see the module docstring): parts (a)-(f), then the
+    attention kernels at the large shapes; each part's models are freed
+    before the next. Returns ({part of LARGE_PARTS: launches}, {row name:
+    the kernel's numbers at the large shape})."""
+    import torch
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.empty_cache()
+        log(f"[large] part {name} passed in {time.perf_counter() - t0:.1f} s")
+        return result
+
+    counts = {"large_align": part("a", phase_large_align, dev, card)}
+    counts["large_v3_serve"], numbers = part("b", phase_large_serve, dev, card, tmp)
+    counts["turbo_transcribe"] = part("c", phase_large_turbo, dev, card, tmp)
+    (counts["large_train_freeze"], counts["large_train_fused"],
+     counts["large_train_remat"]) = part("d, e", phase_large_train, dev, card, medium_peak_gb)
+    part("f", phase_large_cli, dev, card, tmp)
+    numbers.update(part("kernels", phase_large_kernels, dev, card))
+    return counts, numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -4033,6 +4844,7 @@ def main() -> int:
         train_counts = phase_train_medium(dev, card, medium)
         torch.cuda.empty_cache()
         fused_counts = phase_train_fused(dev, card, medium)
+        medium_peak_gb = medium["peak_gb"]
         medium.clear()
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
@@ -4074,6 +4886,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             orbax_counts = phase_orbax(dev, card, tmp)
         log(f"[orbax] phase passed in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            large_counts, large_numbers = phase_large(dev, card, tmp, medium_peak_gb)
+        log(f"[large] phase passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
@@ -4120,6 +4938,13 @@ def main() -> int:
         # phase "orbax" (b): the batch of the model read from the JAX
         # package's orbax dir
         row["orbax_launches"] = orbax_counts.get(launcher, 0)
+        # phase "large": each part's launches, and the kernel's numbers at
+        # the large family's shape (rows 1, 2 and 5a-5c; null elsewhere)
+        for part in LARGE_PARTS:
+            row[f"{part}_launches"] = large_counts[part].get(launcher, 0)
+        row.update(large_numbers.get(row["name"], dict.fromkeys(
+            ("large_shape", "large_ms", "large_bound_ms", "large_library_ms",
+             "large_max_abs_err"))))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

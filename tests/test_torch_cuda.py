@@ -189,6 +189,31 @@ def _bias_attention_case(dev, seq, dtype, bias_kind, batch, heads):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("batch,n_frames", [(5, 1501), (16, 3000)])
+def test_log10_mel_128_bands_against_float64(dev, batch, n_frames):
+    """The large-v3 frontend's 128 bands (several low bands one bin wide)
+    at a batch whose last tile of 32 frames is partial (1501 frames) and at
+    the alignment batch of 16 x 30 s: against the plain version run in
+    float64 where the frontend keeps the mel, as
+    ``test_log10_mel_full_scale_sine`` holds it: atol 1e-4 within 6 decades
+    of the peak, 1e-3 down to 8 (``log_mel``'s clamp), where float32
+    rounding of the transform is what a float32 version can hold (on an
+    H100 a bin 7.9 decades down is 1.2e-4 off; the float32 plain version's
+    dense DFT is 2.8e-4 off below the clamp)."""
+    from lyricalignment_tpu_torch.ops import mel
+
+    audio = torch.randn(batch, n_frames * 160, device=dev, generator=_gen(batch)) * 0.1
+    audio[0, : audio.shape[1] // 3] = 0.0  # silence: the 1e-10 floor
+    padded = mel.reflect_pad(audio).contiguous()
+    got = mel.log10_mel(padded, n_frames, 128)
+    assert got.shape == (batch, 128, n_frames)
+    ref = mel.log10_mel_plain(padded.double(), n_frames, 128)
+    for decades, atol in ((6.0, 1e-4), (8.0, 1e-3)):
+        floor = ref.max() - decades
+        torch.testing.assert_close(torch.maximum(got.double(), floor),
+                                   torch.maximum(ref, floor), atol=atol, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("seq", [1, 63, 65, 127, 128, 129, 200, 255, 1500])
@@ -275,6 +300,49 @@ def test_attention_backward_batch_of_16(dev):
         for name, got, want in zip("qkv", leaves, ref_leaves):
             err = (got.grad[b0:b0 + 2].double() - want.grad.double()).norm()
             assert err <= 1e-2 * want.grad.double().norm(), (name, b0, float(err))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq", [1, 129, 300])
+def test_attention_kernels_at_20_heads(dev, seq, dtype):
+    """The whisper-large head count (20 heads of 64): the forward with its
+    row log-sum-exp, dK/dV and dQ against their plain versions on the same
+    inputs (float32 atol 1e-4; bf16 rel-L2 1e-2, the log-sum-exp atol
+    1e-4), each a launch of its own kernel."""
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.ops.attention import (
+        attention_delta,
+        attention_dkdv,
+        attention_dkdv_plain,
+        attention_dq,
+        attention_dq_plain,
+        attention_forward,
+        attention_fwd_plain,
+    )
+
+    g = _gen(20 + seq)
+    q, k, v, dout = (torch.randn(2, seq, 20, 64, device=dev, generator=g).mul_(0.4).to(dtype)
+                     for _ in range(4))
+    kernels.reset_launch_counts()
+    out, lse = attention_forward(q, k, v, None, with_lse=True)
+    delta = attention_delta(out, dout)
+    dk, dv = attention_dkdv(q, k, v, dout, lse, delta)
+    dq = attention_dq(q, k, v, dout, lse, delta)
+    assert dict(kernels.launches) == {"la_attention_fwd": 1, "la_attention_dkdv": 1,
+                                      "la_attention_dq": 1}
+    ref_out, ref_lse = attention_fwd_plain(q, k, v, None, with_lse=True)
+    ref_dk, ref_dv = attention_dkdv_plain(q, k, v, dout, lse, delta)
+    ref_dq = attention_dq_plain(q, k, v, dout, lse, delta)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    for name, got, want in (("out", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                            ("dv", dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=name)
+        else:
+            # a floor for exactly-zero references (one key: dK is 0)
+            err = (got.double() - want.double()).norm()
+            assert err <= 1e-2 * want.double().norm() + 1e-5, (name, float(err))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
