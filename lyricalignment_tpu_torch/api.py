@@ -75,13 +75,15 @@ class LyricAligner:
         order."""
         from lyricalignment_tpu_torch.cli.inference_alignment import align_records
         from lyricalignment_tpu_torch.data.records import Record
+        from lyricalignment_tpu_torch.utils.observability import trace
 
         records = [Record(audio_path=p, text=t) for p, t in requests]
         args = SimpleNamespace(
             use_ctc_loss=self.use_ctc, is_mixture=0,
             bucket_seconds=self.bucket_seconds,
             max_label_len=self.max_label_len, batch_size=self.batch_size)
-        out = list(align_records(records, self.model, self.table, self.bert, args))
+        with trace("align.call"):
+            out = list(align_records(records, self.model, self.table, self.bert, args))
         return [[[on, off, ch] for (on, off), ch in zip(segments, record.text)]
                 for record, segments in out]
 

@@ -66,6 +66,7 @@ from lyricalignment_tpu_torch.parallel.mesh import (
 from lyricalignment_tpu_torch.parallel.pipeline import make_pipeline_encode_fn
 from lyricalignment_tpu_torch.text.pinyin import load_pronunciation_table
 from lyricalignment_tpu_torch.utils.metrics import mae
+from lyricalignment_tpu_torch.utils.observability import add_counts, trace
 
 
 def parse_args(argv=None):
@@ -131,9 +132,10 @@ def align_records(records, model, table, bert, args):
     fc = model.align_rnn.fc
 
     buckets = {}
-    for i, r in enumerate(records):
-        n = audio_num_samples_16k(r.audio_path)
-        buckets.setdefault(bucket_samples(n, args.bucket_seconds), []).append(i)
+    with trace("align.bucket"):
+        for i, r in enumerate(records):
+            n = audio_num_samples_16k(r.audio_path)
+            buckets.setdefault(bucket_samples(n, args.bucket_seconds), []).append(i)
 
     results = {}
     for padded_len in sorted(buckets):
@@ -144,42 +146,53 @@ def align_records(records, model, table, bert, args):
             # batch so that every data rank holds the same number of rows
             B = batch_size if mesh is not None else min(1 << (len(group) - 1).bit_length(),
                                                          batch_size)
-            a = np.zeros((B, padded_len), np.float32)
-            labels = np.zeros((B, args.max_label_len), np.int32)
-            lens = np.ones((B,), np.int32)
-            frames = np.ones((B,), np.int32)
-            mel_lens = np.ones((B,), np.int32)
-            for j, i in enumerate(group):
-                audio = load_audio_file(records[i].audio_path, args.is_mixture)["speech"]
-                n = min(len(audio), padded_len)
-                a[j, :n] = audio[:n]
-                classes = table.map_tokens(np.asarray(
-                    bert.encode(records[i].text, add_special_tokens=False), np.int32))
-                L = min(len(classes), args.max_label_len)
-                labels[j, :L] = classes[:L]
-                lens[j] = L
-                mel_lens[j] = n // HOP_LENGTH
-                frames[j] = int(round(mel_lens[j] / 2.0))
+            with trace("align.batch"):
+                with trace("align.load"):
+                    a = np.zeros((B, padded_len), np.float32)
+                    kept = np.zeros((B,), np.int64)
+                    labels = np.zeros((B, args.max_label_len), np.int32)
+                    lens = np.ones((B,), np.int32)
+                    frames = np.ones((B,), np.int32)
+                    mel_lens = np.ones((B,), np.int32)
+                    for j, i in enumerate(group):
+                        audio = load_audio_file(records[i].audio_path, args.is_mixture)["speech"]
+                        n = kept[j] = min(len(audio), padded_len)
+                        a[j, :n] = audio[:n]
+                        classes = table.map_tokens(np.asarray(
+                            bert.encode(records[i].text, add_special_tokens=False), np.int32))
+                        L = min(len(classes), args.max_label_len)
+                        labels[j, :L] = classes[:L]
+                        lens[j] = L
+                        mel_lens[j] = n // HOP_LENGTH
+                        frames[j] = int(round(mel_lens[j] / 2.0))
 
-            rows = slice(None) if mesh is None else batch_sharding(mesh).rows(B)
-            out, _ = forward_from_audio(
-                model, torch.from_numpy(a[rows]).to(device),
-                frame_lengths=torch.from_numpy(frames[rows]).to(device),
-                mel_lengths=torch.from_numpy(mel_lens[rows]).to(device),
-                align_head_output="hidden" if fused else "logits", encode_fn=encode_fn)
-            frames = np.minimum(frames, out.shape[1])
-            lab_t, len_t, fr_t = (torch.from_numpy(x[rows]) for x in (labels, lens, frames))
-            if fused:
-                on, off = viterbi_align_fused(out, fc.weight, fc.bias, lab_t,
-                                              len_t, fr_t, mode=mode)
-            else:
-                on, off = viterbi_align(out, lab_t, len_t, fr_t, mode=mode)
-            sec = frames_to_seconds(on, off).cpu().numpy()
-            if mesh is not None:
-                sec = np.concatenate(gather_objects(sec, mesh.get_group(DATA_AXIS)))
-            for j, i in enumerate(group):
-                L = int(lens[j])
-                results[i] = [[float(s), float(e)] for s, e in sec[j, :L]]
+                rows = slice(None) if mesh is None else batch_sharding(mesh).rows(B)
+                # the rows this process encodes: requests, pad rows, true audio
+                local = np.arange(B)[rows]
+                add_counts({"align.requests": int((local < len(group)).sum()),
+                            "align.rows": len(local),
+                            "align.audio_samples": int(kept[rows].sum())})
+                with trace("align.upload"):
+                    audio_d, frames_d, mel_lens_d = (torch.from_numpy(x[rows]).to(device)
+                                                     for x in (a, frames, mel_lens))
+                out, _ = forward_from_audio(
+                    model, audio_d, frame_lengths=frames_d, mel_lengths=mel_lens_d,
+                    align_head_output="hidden" if fused else "logits", encode_fn=encode_fn)
+                with trace("align.viterbi"):
+                    frames = np.minimum(frames, out.shape[1])
+                    lab_t, len_t, fr_t = (torch.from_numpy(x[rows]) for x in (labels, lens, frames))
+                    if fused:
+                        on, off = viterbi_align_fused(out, fc.weight, fc.bias, lab_t,
+                                                      len_t, fr_t, mode=mode)
+                    else:
+                        on, off = viterbi_align(out, lab_t, len_t, fr_t, mode=mode)
+                with trace("align.fetch"):
+                    sec = frames_to_seconds(on, off).cpu().numpy()
+                    if mesh is not None:
+                        sec = np.concatenate(gather_objects(sec, mesh.get_group(DATA_AXIS)))
+                    for j, i in enumerate(group):
+                        L = int(lens[j])
+                        results[i] = [[float(s), float(e)] for s, e in sec[j, :L]]
 
     for i, record in enumerate(records):
         yield record, results[i]

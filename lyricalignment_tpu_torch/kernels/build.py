@@ -30,6 +30,8 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from lyricalignment_tpu_torch.utils.observability import op_span
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -196,9 +198,11 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call launcher ``name``; raise if the launch was refused, else count
-    it."""
+    it. In a profile the kernels it launches are linked to a host op named
+    ``name``."""
     lib = library()
-    rc = getattr(lib, name)(*args)
+    with op_span(name):
+        rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.la_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

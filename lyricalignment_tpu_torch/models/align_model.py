@@ -19,7 +19,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from lyricalignment_tpu_torch import EMBED_FRAMES, N_FRAMES
+from lyricalignment_tpu_torch import EMBED_FRAMES, N_FRAMES, N_SAMPLES
 from lyricalignment_tpu_torch.models.align_head import (
     AlignHead,
     align_head_apply,
@@ -33,6 +33,7 @@ from lyricalignment_tpu_torch.models.whisper import (
     init_whisper_weights,
 )
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
+from lyricalignment_tpu_torch.utils.observability import add_counts, trace
 
 
 @dataclass(frozen=True)
@@ -91,6 +92,15 @@ def _half(n: int) -> int:
     return int(round(n / 2.0))
 
 
+def _encode(encode_fn, whisper, windows: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``encode_fn`` on mel windows [n, n_mels, N_FRAMES] in the span
+    ``model.encode``; each window counts as 30 s of audio encoded
+    (``model.encoded_samples``)."""
+    add_counts({"model.encoded_samples": windows.shape[0] * N_SAMPLES})
+    with trace("model.encode"):
+        return encode_fn(whisper, windows, remat=remat)
+
+
 def forward_from_audio(
     model: AlignModel,
     audio: torch.Tensor,
@@ -138,17 +148,18 @@ def forward_from_audio(
     decode_fn = decode_fn or decoder_logits
     frozen = torch.no_grad() if cfg.freeze_encoder else contextlib.nullcontext()
     with frozen:
-        mel = log_mel(audio, n_mels=cfg.whisper.n_mels)         # [B, n_mels, T_mel]
-        if frame_lengths is not None:
-            if mel_lengths is None:
-                mel_lengths = 2 * frame_lengths
-            t_idx = torch.arange(mel.shape[-1], device=mel.device)
-            keep = t_idx[None, None, :] < mel_lengths.to(mel.device)[:, None, None]
-            mel = torch.where(keep, mel, torch.zeros((), dtype=mel.dtype, device=mel.device))
+        with trace("model.mel"):
+            mel = log_mel(audio, n_mels=cfg.whisper.n_mels)         # [B, n_mels, T_mel]
+            if frame_lengths is not None:
+                if mel_lengths is None:
+                    mel_lengths = 2 * frame_lengths
+                t_idx = torch.arange(mel.shape[-1], device=mel.device)
+                keep = t_idx[None, None, :] < mel_lengths.to(mel.device)[:, None, None]
+                mel = torch.where(keep, mel, torch.zeros((), dtype=mel.dtype, device=mel.device))
         t_mel = mel.shape[-1]
 
         if not trim_to_input_length or t_mel <= N_FRAMES:
-            embed = encode_fn(whisper, pad_or_trim(mel, N_FRAMES), remat=remat)
+            embed = _encode(encode_fn, whisper, pad_or_trim(mel, N_FRAMES), remat)
             embed_for_decoder = embed
             align_embed = embed[:, : _half(t_mel)] if trim_to_input_length else embed
         else:
@@ -157,7 +168,7 @@ def forward_from_audio(
             n_chunks = -(-t_mel // N_FRAMES)
             windows = pad_or_trim(mel, n_chunks * N_FRAMES).reshape(b, n_mels, n_chunks, N_FRAMES)
             windows = windows.permute(0, 2, 1, 3).reshape(b * n_chunks, n_mels, N_FRAMES)
-            embeds = encode_fn(whisper, windows, remat=remat).reshape(b, n_chunks, EMBED_FRAMES, -1)
+            embeds = _encode(encode_fn, whisper, windows, remat).reshape(b, n_chunks, EMBED_FRAMES, -1)
             # full windows keep all 1500 frames, the last round(remainder / 2)
             last_len = _half(t_mel - (n_chunks - 1) * N_FRAMES)
             parts = [embeds[:, i] for i in range(n_chunks - 1)] + [embeds[:, -1, :last_len]]
@@ -167,8 +178,9 @@ def forward_from_audio(
     align_out = None
     if cfg.train_alignment:
         head_fn = {"hidden": align_head_hidden, "logits": align_head_apply}[align_head_output]
-        align_out = head_fn(model.align_rnn, align_embed, frame_lengths, cfg.dropout, generator,
-                            dropout_rows)
+        with trace("model.head"):
+            align_out = head_fn(model.align_rnn, align_embed, frame_lengths, cfg.dropout,
+                                generator, dropout_rows)
     transcribe_logits = None
     if cfg.train_transcript and y_in is not None:
         transcribe_logits = decode_fn(whisper, y_in, embed_for_decoder, remat=remat)

@@ -3,8 +3,15 @@
 Port of ``lyricalignment_tpu/utils/observability.py:28-89``:
 
 * ``trace(name)``: a ``torch.profiler.record_function`` span, which names a
-  host-side phase in a profile;
-* ``annotate(fn, name)``: ``fn`` with its calls inside such a span;
+  host-side phase in a profile and shares the profile's clock with the
+  device's kernels; with no profiler running it is a shared no-op context
+  and costs one check;
+* ``op_span(name)``: a host op the profiler ties the device work launched
+  inside it to (a ``trace`` span is a user annotation, which it does not):
+  the port's own kernel launches, which no aten op wraps; a shared no-op
+  with no profiler running;
+* ``counts`` / ``add_counts`` / ``reset_counts``: the program's own counts
+  since the last reset, by name (the alignment path's ``align.*``);
 * ``profile_session(log_dir)``: ``torch.profiler.profile`` around a block
   (CPU activity, and CUDA activity when a card is in use), its Chrome trace
   written into ``log_dir`` as ``trace.json`` on exit;
@@ -18,29 +25,52 @@ Port of ``lyricalignment_tpu/utils/observability.py:28-89``:
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import os
+import threading
 import time
-from typing import Dict
+from collections import Counter
+from typing import Dict, Mapping
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
 
 TRACE_FILE = "trace.json"
+_NO_SPAN = contextlib.nullcontext()
+
+#: the program's counts since the last reset, by name; each counting site
+#: adds once a unit of its work (the alignment path: once a batch)
+counts: Counter = Counter()
+_count_lock = threading.Lock()
 
 
 def trace(name: str):
-    """A named host-side span (shows in profiler timelines)."""
+    """A named host-side span (shows in profiler timelines). Outside a
+    profiler (on this thread) it is a shared no-op context."""
+    if not _profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
-def annotate(fn, name: str):
-    """``fn`` with each call inside a ``trace(name)`` span."""
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with trace(name):
-            return fn(*args, **kwargs)
-    return wrapped
+def op_span(name: str):
+    """A named host op that the device work launched inside it is linked
+    to in a profile, as an aten op's kernels are. Outside a profiler (on
+    this thread) it is the shared no-op context."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
+
+
+def add_counts(values: Mapping[str, int]) -> None:
+    """Add each of ``values`` to its count, under one lock."""
+    with _count_lock:
+        counts.update(values)
+
+
+def reset_counts() -> None:
+    with _count_lock:
+        counts.clear()
 
 
 @contextlib.contextmanager
