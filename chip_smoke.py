@@ -275,8 +275,11 @@ PEAK_BF16 = 989e12
 
 B, SECONDS, L_BENCH, C_CTC = 16, 30, 48, 21129
 # launchers of the alignment serving path (the training path adds
-# la_attention_fwd, la_attention_dkdv and la_attention_dq)
-SERVING_KERNELS = ("la_log10_mel", "la_bias_attention", "la_row_lse", "la_viterbi")
+# la_attention_fwd, la_attention_dkdv and la_attention_dq, and runs the
+# head's bi-GRU through cuDNN instead of la_gru_recurrence)
+SERVING_KERNELS = ("la_log10_mel", "la_bias_attention", "la_gru_recurrence", "la_row_lse",
+                   "la_viterbi")
+GRU_LAYERS = 2  # la_gru_recurrence launches an alignment batch: one a bi-GRU layer
 
 
 def log(msg: str) -> None:
@@ -363,6 +366,106 @@ def viterbi_step_cycles(steps: int = 100000) -> float:
         torch.cuda.synchronize()
         if lib.step_cycles(steps, ctypes.c_void_p(out.data_ptr())) != 0:
             raise AssertionError("the step probe did not launch")
+        torch.cuda.synchronize()
+        return out[0].item() / steps
+
+
+# One cluster of 16 blocks of 384 threads (the GRU kernel's at H = 384)
+# timing `steps` rounds of the recurrence kernel's exchange alone: 16
+# threads each st.async 16 bytes into one peer's buffer, counted on its
+# mbarrier; every thread waits for its own buffer's 256 bytes; one block
+# barrier. out[0] = block 0's clock64 cycles for all of them.
+_EXCHANGE_PROBE = r"""
+#include <cooperative_groups.h>
+#include "hopper.cuh"
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(384, 1) exchange_kernel(int steps, long long* out) {
+  __shared__ __align__(16) float buf[2][16][4];
+  __shared__ __align__(8) uint64_t bars[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const uint32_t tx = 16 * 16;
+  if (tid == 0) {
+    la::hopper::mbar_init(&bars[0], 1);
+    la::hopper::mbar_init(&bars[1], 1);
+    la::hopper::fence_barrier_init();
+    la::hopper::mbar_arrive_expect_tx(&bars[0], tx);
+    la::hopper::mbar_arrive_expect_tx(&bars[1], tx);
+  }
+  cluster.sync();
+  const long long t0 = clock64();
+  for (int s = 0; s < steps; ++s) {
+    const int nb = (s & 1) ^ 1;
+    if (tid < 16) {
+      uint32_t dst, bar;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(dst)
+                   : "r"(la::hopper::smem_u32(&buf[nb][cluster.block_rank()][0])), "r"(tid));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(bar)
+                   : "r"(la::hopper::smem_u32(&bars[nb])), "r"(tid));
+      const float v = static_cast<float>(s);
+      asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+                   "[%0], {%1, %2, %3, %4}, [%5];" :: "r"(dst), "f"(v), "f"(v), "f"(v), "f"(v),
+                   "r"(bar) : "memory");
+    }
+    const uint32_t addr = la::hopper::smem_u32(&bars[nb]);
+    uint32_t done;
+    do {
+      asm volatile("{\n.reg .pred p;\n"
+                   "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                   "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done)
+                   : "r"(addr), "r"((s >> 1) & 1) : "memory");
+    } while (!done);
+    if (tid == 0) la::hopper::mbar_arrive_expect_tx(&bars[nb], tx);
+    __syncthreads();
+  }
+  const long long t1 = clock64();
+  if (tid == 0 && cluster.block_rank() == 0) out[0] = t1 - t0;
+  cluster.sync();
+}
+
+extern "C" int exchange_cycles(int steps, long long* out) {
+  cudaError_t err = cudaFuncSetAttribute(exchange_kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(16);
+  cfg.blockDim = dim3(384);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 16;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, exchange_kernel, steps, out);
+}
+"""
+
+
+def gru_exchange_cycles(steps: int = 20000) -> float:
+    """SM cycles of one round of the GRU kernel's exchange between the 16
+    blocks of a cluster (its chain's floor a step), from ``_EXCHANGE_PROBE``
+    built beside the kernel library."""
+    import ctypes
+
+    import torch
+
+    from lyricalignment_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        src, so = os.path.join(tmp, "exchange_probe.cu"), os.path.join(tmp, "exchange_probe.so")
+        with open(src, "w") as f:
+            f.write(_EXCHANGE_PROBE)
+        subprocess.run([build._nvcc()] + build.ARCH_FLAGS + build.COMMON_FLAGS
+                       + ["-I", str(build.CSRC_DIR), "-shared", "-o", so, src],
+                       check=True, capture_output=True, timeout=300)
+        lib = ctypes.CDLL(so)
+        out = torch.zeros(1, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        if lib.exchange_cycles(steps, ctypes.c_void_p(out.data_ptr())) != 0:
+            raise AssertionError("the exchange probe did not launch")
         torch.cuda.synchronize()
         return out[0].item() / steps
 
@@ -630,7 +733,67 @@ def phase_kernels(dev):
     # K = 97 and 257 both run two states a lane
     log("[kernel] viterbi ptxas: " + "; ".join(
         f"S={s}: {ptxas_report('viterbi.cu', f'viterbi_kernelILi{s}E')}" for s in (2, 4, 8, 16, 32)))
+
+    # --- kernel 5: one bi-GRU layer's recurrence, the align head's at the
+    # serving batch (B = 16, T = 1500, H = 384, input 1024), ragged lengths
+    phase_kernels_gru(dev, g, report)
     return rows
+
+
+def phase_kernels_gru(dev, g, report):
+    """la_gru_recurrence against its plain version on the same input
+    products (its own float32 sums in another order: 1e-5); cuDNN's packed
+    float32 layer (TF32 off, its input product included) as the library
+    call; the bound: the live steps' recurrent FLOPs at the CUDA cores' peak
+    or the bytes, beside the chain floor of 1500 dependent exchanges."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    from lyricalignment_tpu_torch.ops import gru
+
+    t, h, n_in = 1500, 384, 1024
+    torch.manual_seed(5)
+    rnn = nn.GRU(n_in, h, bidirectional=True, batch_first=True).to(dev)
+    x = torch.randn(B, t, n_in, device=dev, generator=g)
+    lengths = [t, 1, 2, t - 1] + [int(v) for v in torch.linspace(700, t, B - 4)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sfx = ("", "_reverse")
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        gi = F.linear(x, torch.cat([getattr(rnn, f"weight_ih_l0{s}") for s in sfx]),
+                      torch.cat([getattr(rnn, f"bias_ih_l0{s}") for s in sfx]))
+        w_hh = torch.stack([getattr(rnn, f"weight_hh_l0{s}") for s in sfx]).contiguous()
+        b_hh = torch.stack([getattr(rnn, f"bias_hh_l0{s}") for s in sfx]).contiguous()
+        got = gru.gru_recurrence(gi, w_hh, b_hh, lens)
+        ref = gru.gru_recurrence_plain(gi, w_hh, b_hh, lens)
+        err = (got - ref).abs().max().item()
+        again = torch.equal(got, gru.gru_recurrence(gi, w_hh, b_hh, lens))
+        ms = time_ms(lambda: gru.gru_recurrence(gi, w_hh, b_hh, lens), reps=10)
+        plain_ms = time_ms(lambda: gru.gru_recurrence_plain(gi, w_hh, b_hh, lens), reps=1,
+                           warmup=0)
+        packed = pack_padded_sequence(x, torch.tensor(lengths), batch_first=True,
+                                      enforce_sorted=False)
+        lib_ms = time_ms(lambda: rnn(packed), reps=5)
+    live = sum(lengths)  # each row's steps, in each direction
+    flops = 2 * 2 * live * 3 * h * h
+    nbytes = 4 * (2 * live * 3 * h + B * t * 2 * h + 2 * (3 * h * h + 3 * h) + B)
+    bound_ms, bound_by = bound(flops, PEAK_F32, nbytes)
+    cycles = gru_exchange_cycles()
+    mhz = sm_clock_mhz()
+    floor_ms = t * cycles / (mhz * 1e3)
+    plan = gru.gru_plan(B, t, h, 2)
+    log(f"[kernel] gru_recurrence B={B} T={t} H={h}: kernel_ms={ms:.4f} "
+        f"({ms / t * 1e3:.3f} us a step) plain_ms={plain_ms:.4f} cuDNN packed layer "
+        f"{lib_ms:.4f} ms; bound_ms={bound_ms:.4f} ({bound_by}: {flops / 1e9:.1f} GFLOP at "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s); chain floor {floor_ms:.4f} ms ({t} steps x "
+        f"{cycles:.0f} cycles of the cluster's exchange at {mhz:.0f} MHz, {2 * t} steps "
+        f"{2 * floor_ms:.4f} ms for the head's two layers); plan {plan}; two runs bit-equal: "
+        f"{again}; ptxas {ptxas_report('gru.cu', 'gru_kernelILi6ELi3E')}")
+    report("gru_recurrence", "lyricalignment_tpu_torch/csrc/gru.cu",
+           "none (lyricalignment_tpu/ops/gru.py:36-88 is a lax.scan)", err, "1e-5",
+           err <= 1e-5 and again, ms, plain_ms, lib_ms, max(bound_ms, floor_ms),
+           f"{bound_by} {bound_ms:.4f}, chain floor {floor_ms:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -905,7 +1068,7 @@ def phase_throughput(dev, model, card):
     elapsed = time.perf_counter() - t0
     counts = dict(kernels.launches)
     per_batch = {"la_log10_mel": 1, "la_bias_attention": model.cfg.whisper.n_audio_layer,
-                 "la_row_lse": 1, "la_viterbi": 1}
+                 "la_gru_recurrence": GRU_LAYERS, "la_row_lse": 1, "la_viterbi": 1}
     expected = {name: iters * n for name, n in per_batch.items()}
     rate = iters * B * SECONDS / elapsed
     per_stage = {}
@@ -1711,13 +1874,14 @@ def phase_train_medium(dev, card, medium):
     else:
         busy, by_name = trace
         n_kernels = sum(n for _, n in by_name.values())
-        # the align head's recurrence: cuDNN/cuBLAS kernels per time step
+        # the align head's recurrence with grad enabled: cuDNN/cuBLAS kernels
+        # per time step (without grad it is la_gru_recurrence, one a layer)
         gru = sum(n for name, (_, n) in by_name.items()
                   if "RNN" in name or "GRU" in name or "gemmSN" in name)
         log(f"[train-trace] one step: device busy {busy:.1f} ms of the {mean_s * 1e3:.1f} ms "
             f"mean step, idle share {1 - busy / (mean_s * 1e3):.3f}; {n_kernels} device "
-            f"kernels and copies, {gru} of them the GRU's per-time-step kernels; top device "
-            f"kernels (ms, count):")
+            f"kernels and copies, {gru} of them the training GRU's per-time-step cuDNN "
+            f"kernels; top device kernels (ms, count):")
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
             log(f"[train-trace]   {ms:9.3f} {n:6d}  {name[:110]}")
     return counts
@@ -3135,7 +3299,7 @@ def phase_mesh_world_of_one(dev, card, tmp):
     base = _align_model(dev)
     weights = {k: v.clone() for k, v in base.state_dict().items()}
     expected = {"la_log10_mel": 1, "la_bias_attention": base.cfg.whisper.n_audio_layer,
-                "la_row_lse": 1, "la_viterbi": 1}
+                "la_gru_recurrence": GRU_LAYERS, "la_row_lse": 1, "la_viterbi": 1}
     _align(base, records[:2])  # first-use allocations outside the comparison
     runs = {}
     for name in ("unmeshed", "data1", "tp1"):
@@ -3464,8 +3628,8 @@ def phase_mesh(dev, card, tmp):
 
     outs, wall = _spawn_ranks(_mesh_rank, tmp, dev, "mesh")
     medium = WHISPER_CONFIGS["medium"]
-    expected = {"la_log10_mel": 1, "la_bias_attention": medium.n_audio_layer, "la_row_lse": 1,
-                "la_viterbi": 1}
+    expected = {"la_log10_mel": 1, "la_bias_attention": medium.n_audio_layer,
+                "la_gru_recurrence": GRU_LAYERS, "la_row_lse": 1, "la_viterbi": 1}
     base32 = rel_l2(u_enc, enc32)
     base_share = _within_frame(u_segs, segs32)
     for rank, out in enumerate(outs):
@@ -3752,8 +3916,8 @@ def phase_pipe(dev, card, tmp):
     medium = WHISPER_CONFIGS["medium"]
     # each stage runs half the encoder's blocks on each micro-batch
     per_stage = medium.n_audio_layer // 2 * PIPE_MICRO
-    expected_a = {"la_log10_mel": 1, "la_bias_attention": per_stage, "la_row_lse": 1,
-                  "la_viterbi": 1}
+    expected_a = {"la_log10_mel": 1, "la_bias_attention": per_stage,
+                  "la_gru_recurrence": GRU_LAYERS, "la_row_lse": 1, "la_viterbi": 1}
     expected_b = {"la_log10_mel": 1, "la_attention_fwd": per_stage,
                   "la_attention_dkdv": per_stage, "la_attention_dq": per_stage}
     base32 = rel_l2(u_enc, enc32)
@@ -4149,6 +4313,7 @@ def phase_large_align(dev, card):
         f"{stats['large'][1]:.4f} (medium's {stats['medium'][1]:.4f}; at most 0.02 below); "
         f"onsets finite and ordered: {ordered}; launches in {LARGE_ITERS} batches {counts}")
     _large_counts(counts, {"la_log10_mel": LARGE_ITERS, "la_bias_attention": n_layer * LARGE_ITERS,
+                           "la_gru_recurrence": GRU_LAYERS * LARGE_ITERS,
                            "la_row_lse": LARGE_ITERS, "la_viterbi": LARGE_ITERS}, "(a)")
     if not ordered or stats["large"][0] > 2 * stats["medium"][0] or (
             stats["large"][1] < stats["medium"][1] - 0.02):
@@ -4221,7 +4386,8 @@ def phase_large_serve(dev, card, tmp):
     # one launch of each a batch, the attention one a layer
     batches = counts.get("la_log10_mel", 0)
     _large_counts(counts, {"la_log10_mel": batches, "la_row_lse": batches, "la_viterbi": batches,
-                           "la_bias_attention": wcfg.n_audio_layer * batches}, "(b)'s requests")
+                           "la_bias_attention": wcfg.n_audio_layer * batches,
+                           "la_gru_recurrence": GRU_LAYERS * batches}, "(b)'s requests")
     if not batches:
         raise AssertionError("(b): the requests launched no kernel")
     del aligner, model
@@ -4687,8 +4853,9 @@ def phase_large_cli(dev, card, tmp):
     log(f"[large-f] alignment CLI on the written best_model: {time.perf_counter() - t0:.1f} s "
         f"with the load, MAE {mae:.4f} s on a {lengths[0]} s song, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}; launches {counts}")
-    _large_counts(counts, {"la_log10_mel": 1, "la_bias_attention": n_layer, "la_row_lse": 1,
-                           "la_viterbi": 1}, "(f)'s alignment CLI")
+    _large_counts(counts, {"la_log10_mel": 1, "la_bias_attention": n_layer,
+                           "la_gru_recurrence": GRU_LAYERS, "la_row_lse": 1, "la_viterbi": 1},
+                  "(f)'s alignment CLI")
     if not math.isfinite(mae):
         raise AssertionError("(f): the served checkpoint's MAE is not finite")
 
@@ -4899,7 +5066,8 @@ def main() -> int:
     # launches: each path's own run (serving for the serving kernels, the
     # timed whisper-medium train steps for the training kernels)
     launchers = {"log10_mel": "la_log10_mel", "bias_attention": "la_bias_attention",
-                 "row_lse": "la_row_lse", "viterbi": "la_viterbi"}
+                 "row_lse": "la_row_lse", "viterbi": "la_viterbi",
+                 "gru_recurrence": "la_gru_recurrence"}
     for row in rows:
         row["launches"] = counts[launchers[row["name"]]]
     for row in train_rows:

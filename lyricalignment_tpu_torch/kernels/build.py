@@ -77,6 +77,8 @@ SIGNATURES: Dict[str, list] = {
     # la_viterbi_scratch_words(batch, frames, labels_max) words), onset,
     # offset, batch, frames, labels_max, stream
     "la_viterbi": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # gi, w_hh, b_hh, lengths, out, batch, steps, hidden, directions, stream
+    "la_gru_recurrence": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 #: kernel launches since the last reset, by launcher name; each wrapper in
@@ -192,6 +194,8 @@ def library() -> ctypes.CDLL:
             lib.la_ctc_plan.restype = ctypes.c_int
             lib.la_ctc_bwd_scratch_floats.argtypes = [_I, _I, _I]
             lib.la_ctc_bwd_scratch_floats.restype = ctypes.c_longlong
+            lib.la_gru_plan.argtypes = [_I, _I, _I, _I, _P]
+            lib.la_gru_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -3,7 +3,9 @@
 Port of ``lyricalignment_tpu/models/align_head.py`` (the reference's ``RNN``
 module, `module/align_model.py:11-40`); parameter names are the reference's
 ``align_rnn.rnn.*`` / ``align_rnn.fc.*``. The head computes in float32
-whatever the encoder's compute dtype: its input is upcast before the GRU.
+whatever the encoder's compute dtype: its input is upcast before the GRU,
+which is ``nn.GRU`` with grad enabled and the recurrence kernel with grad
+disabled (``ops/gru.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lyricalignment_tpu_torch.models.whisper import no_tf32
 from lyricalignment_tpu_torch.ops.gru import bigru_apply
 
 
@@ -40,8 +43,9 @@ def align_head_hidden(head: AlignHead, x: torch.Tensor,
     ``dropout`` between the GRU layers is active only with a ``generator``;
     ``dropout_rows`` (start, total) draws a data shard's rows of the whole
     batch's mask (``ops.gru.inverted_dropout``)."""
-    # cuDNN runs float32 RNN matmuls in TF32 unless told otherwise
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    # cuDNN runs float32 RNN matmuls in TF32 unless told otherwise; the
+    # kernel route's input products are float32 matmuls
+    with no_tf32(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         h = bigru_apply(head.rnn, x.float(), lengths, dropout, generator, dropout_rows)
     return mish(h)
 

@@ -32,6 +32,7 @@ from lyricalignment_tpu_torch.models.whisper import (
     encode_audio,
     init_whisper_weights,
 )
+from lyricalignment_tpu_torch.ops.gru import kernel_route as gru_kernel_route
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
 from lyricalignment_tpu_torch.utils.observability import add_counts, trace
 
@@ -134,7 +135,9 @@ def forward_from_audio(
     rows ``dropout_rows`` (start, total) of a sharded batch's mask if given;
     ``remat`` checkpoints every transformer block. Under
     ``cfg.freeze_encoder`` the encoder runs under ``torch.no_grad()``, so
-    its backward never runs.
+    its backward never runs. The head counts its bi-GRU layers by route
+    (``head.gru_kernel_layers`` with grad disabled, ``head.gru_cudnn_layers``
+    with grad enabled: ``ops.gru.kernel_route``).
 
     ``encode_fn`` replaces the encoder on every branch, with
     ``encode_audio``'s calling convention ``(whisper, mel, remat=...)``, and
@@ -179,6 +182,8 @@ def forward_from_audio(
     if cfg.train_alignment:
         head_fn = {"hidden": align_head_hidden, "logits": align_head_apply}[align_head_output]
         with trace("model.head"):
+            route = "kernel" if gru_kernel_route() else "cudnn"
+            add_counts({f"head.gru_{route}_layers": model.align_rnn.rnn.num_layers})
             align_out = head_fn(model.align_rnn, align_embed, frame_lengths, cfg.dropout,
                                 generator, dropout_rows)
     transcribe_logits = None

@@ -213,12 +213,12 @@ def _linear_int8(lin: nn.Module, x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 _tf32_lock = threading.Lock()
-_tf32_open = 0                  # blocks of _no_tf32 open, in any thread
+_tf32_open = 0                  # blocks of no_tf32 open, in any thread
 _tf32_saved = (False, False)
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """float32 matmuls and convolutions without TF32 inside the block. The
     flags are process-wide and blocks may be open in several threads at
     once (the long-form loop's groups), so the first block to open saves
@@ -246,7 +246,7 @@ def _int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     values, TF32 off (PyTorch has no batched int8 product). Exact where every
     partial sum stays below 2^24: always for the Dh = 64 contraction
     (64 x 127^2), and to 1 ulp at worst for the T = 1500 one."""
-    with _no_tf32():
+    with no_tf32():
         return torch.einsum(equation, a.float(), b.float())
 
 
@@ -424,7 +424,7 @@ class AudioEncoder(nn.Module):
         gelu = lambda y: F.gelu(y, approximate="tanh" if self.cfg.fast_gelu else "none")
         x = mel.to(dtype)
         # cuDNN runs float32 convolutions in TF32 unless told otherwise
-        with _no_tf32():
+        with no_tf32():
             x = gelu(F.conv1d(x, self.conv1.weight.to(dtype), self.conv1.bias.to(dtype),
                               padding=1))
             x = gelu(F.conv1d(x, self.conv2.weight.to(dtype), self.conv2.bias.to(dtype),

@@ -449,6 +449,124 @@ def test_gru_dropout_draws_from_the_generator(dev):
     torch.testing.assert_close(bigru_apply(rnn, x), rnn(x)[0], atol=1e-5, rtol=0)
 
 
+def _gru_layer_inputs(rnn):
+    """gi, w_hh, b_hh of a one-layer nn.GRU for gru_recurrence."""
+    import torch.nn.functional as F
+
+    sfx = ("", "_reverse") if rnn.bidirectional else ("",)
+    get = lambda n: [getattr(rnn, f"{n}_l0{s}") for s in sfx]
+    return (lambda x: F.linear(x, torch.cat(get("weight_ih")), torch.cat(get("bias_ih"))),
+            torch.stack(get("weight_hh")).contiguous(), torch.stack(get("bias_hh")).contiguous())
+
+
+@pytest.mark.parametrize("n_in", [1024, 1280, 768])
+def test_gru_recurrence_at_the_cells_shapes(dev, n_in):
+    """One bi-GRU layer at the alignment cells' shapes (B = 16, T = 1500,
+    H = 384; input 1024 and 1280, the encoders' widths, and 768, the second
+    layer's), ragged lengths with a row of 1 and one of T: the kernel
+    against its plain version on the same input products and against
+    cuDNN's packed float32 RNN (TF32 off). Each sums in its own order, over
+    1500 dependent steps: 1e-5 (the state lies in (-1, 1); 3.7e-7 was read
+    on an H100); past each length exact zeros, and one launch a layer."""
+    from torch import nn
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.ops.gru import bigru_apply, gru_recurrence_plain
+
+    torch.manual_seed(n_in)
+    rnn = nn.GRU(n_in, 384, num_layers=1, bidirectional=True, batch_first=True).to(dev)
+    b, t = 16, 1500
+    lengths = [t, 1, 2, t - 1] + [int(x) for x in torch.linspace(40, t, b - 4)]
+    x = torch.randn(b, t, n_in, device=dev, generator=_gen(n_in))
+    if n_in == 768:  # the second layer reads the first's outputs, in (-1, 1)
+        x = torch.tanh(x)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = bigru_apply(rnn, x, lens)
+        assert dict(kernels.launches) == {"la_gru_recurrence": 1}
+        gi_fn, w_hh, b_hh = _gru_layer_inputs(rnn)
+        plain = gru_recurrence_plain(gi_fn(x), w_hh, b_hh, lens)
+        packed = pack_padded_sequence(x, torch.tensor(lengths), batch_first=True,
+                                      enforce_sorted=False)
+        cudnn = pad_packed_sequence(rnn(packed)[0], batch_first=True, total_length=t)[0]
+    for i, n in enumerate(lengths):
+        torch.testing.assert_close(got[i, :n], plain[i, :n], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[i, :n], cudnn[i, :n], atol=1e-5, rtol=0)
+        assert torch.equal(got[i, n:], torch.zeros_like(got[i, n:]))
+
+
+@pytest.mark.parametrize("b,t,h,dirs", [(1, 1, 4, 2), (3, 2, 6, 2), (5, 37, 8, 2),
+                                        (16, 37, 16, 2), (40, 9, 32, 2), (4, 20, 32, 1),
+                                        (1, 300, 100, 2), (2, 17, 384, 2), (17, 5, 384, 1),
+                                        (9, 64, 50, 2)])
+def test_gru_recurrence_edges(dev, b, t, h, dirs):
+    """Every hidden size the repo uses (4-32, 384), sizes whose last block
+    owns fewer units (50, 100), one direction, batches of 1 to 40 rows (one
+    to several clusters a direction, 1 to 8 rows a cluster) and T from 1:
+    the kernel against its plain version, lengths 1..T."""
+    from lyricalignment_tpu_torch.ops.gru import gru_recurrence, gru_recurrence_plain
+
+    g = _gen(b * 1000 + t * 10 + h)
+    gi = torch.randn(b, t, dirs * 3 * h, device=dev, generator=g)
+    w_hh = torch.randn(dirs, 3 * h, h, device=dev, generator=g) / h ** 0.5
+    b_hh = torch.randn(dirs, 3 * h, device=dev, generator=g) * 0.1
+    lens = torch.randint(1, t + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0] = t
+    got = gru_recurrence(gi, w_hh, b_hh, lens)
+    want = gru_recurrence_plain(gi, w_hh, b_hh, lens)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    again = gru_recurrence(gi, w_hh, b_hh, lens)
+    assert torch.equal(got, again)
+
+
+def test_gru_head_launches_without_a_host_sync(dev):
+    """align_head_hidden under inference_mode at the serving shape: two
+    launches (one a layer), no cuDNN, and no host sync (the lengths stay on
+    the card)."""
+    from lyricalignment_tpu_torch import kernels
+    from lyricalignment_tpu_torch.models.align_head import AlignHead, align_head_hidden
+
+    torch.manual_seed(0)
+    head = AlignHead(1024, 384, 8).to(dev).eval()
+    x = torch.randn(16, 1500, 1024, device=dev, generator=_gen(3))
+    lens = torch.tensor([1500, 1, 700] + [1400] * 13, device=dev)
+    with torch.inference_mode():
+        align_head_hidden(head, x, lens)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                h = align_head_hidden(head, x, lens)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert dict(kernels.launches) == {"la_gru_recurrence": 2}
+    assert not any("rnn" in e.key.lower() for e in prof.key_averages())
+    assert h.shape == (16, 1500, 768) and bool(torch.isfinite(h).all())
+
+
+def test_gru_recurrence_refuses_what_it_cannot_take(dev):
+    from torch import nn
+
+    from lyricalignment_tpu_torch.ops.gru import bigru_apply, gru_recurrence
+
+    rnn = nn.GRU(8, 400, bidirectional=True, batch_first=True).to(dev)
+    x = torch.randn(2, 5, 8, device=dev)
+    with torch.inference_mode(), pytest.raises(ValueError, match="hidden sizes up to 384"):
+        bigru_apply(rnn, x)
+    gi = torch.zeros(2, 5, 6 * 16, device=dev)
+    w_hh, b_hh = torch.zeros(2, 48, 16, device=dev), torch.zeros(2, 48, device=dev)
+    lens = torch.full((2,), 5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        gru_recurrence(gi.double(), w_hh, b_hh, lens)
+    with pytest.raises(ValueError, match="int32"):
+        gru_recurrence(gi, w_hh, b_hh, lens.long())
+    with pytest.raises(ValueError, match="shapes"):
+        gru_recurrence(gi[..., :-1].contiguous(), w_hh, b_hh, lens)
+
+
 def test_bias_attention_refuses_other_head_widths(dev):
     from lyricalignment_tpu_torch.ops.attention import onepass_self_attention
 

@@ -131,9 +131,12 @@ def test_align_path_spans_and_counts(aligner):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         out = port.align_many(requests)
     assert [len(r) for r in out] == [3, 3, 3, 2]
+    # two batches through the head's two bi-GRU layers, grad disabled: the
+    # recurrence kernel's route
     assert dict(obs.counts) == {
         "align.requests": 4, "align.rows": 4 + 1, "align.audio_samples": 3 * 160000 + 640000,
-        "model.encoded_samples": 4 * N_SAMPLES + 1 * 2 * N_SAMPLES}
+        "model.encoded_samples": 4 * N_SAMPLES + 1 * 2 * N_SAMPLES,
+        "head.gru_kernel_layers": 2 * 2}
 
     # the spans as the profiler keeps them (its event tree takes minutes to
     # build over the plain Viterbi's ops); nesting is containment in time
