@@ -124,6 +124,7 @@ class LyricAligner:
             WhisperTokenizer,
             num_languages_for_vocab,
         )
+        from lyricalignment_tpu_torch.utils.observability import trace
 
         wcfg = self.model.cfg.whisper
         wt = WhisperTokenizer(
@@ -140,7 +141,8 @@ class LyricAligner:
             no_condition_on_previous_text=not condition_on_previous_text,
             seed=114514,
         )
-        results = transcribe_records(
-            [Record(audio_path=p, text="") for p in audio_paths],
-            self.model.whisper_model, wcfg, wt, args)
+        with trace("transcribe.call"):
+            results = transcribe_records(
+                [Record(audio_path=p, text="") for p in audio_paths],
+                self.model.whisper_model, wcfg, wt, args)
         return [r["inference"] for r in results]

@@ -16,6 +16,17 @@ timestamp-rule decoding, condition-on-previous-text prompts, seek to the
 last complete timestamp pair. ``--fast-windows`` switches long audio to
 independent batched 30 s windows instead.
 
+Each result carries ``avg_logprob``: whisper's score of each window's
+tokens (sum of their processed log-probabilities, eot's included where it
+ended the text, over the text length plus one), one float a window in
+window order; ``None`` for a song decoded by the long-form loop, whose
+scores belong to its segments. Spans (``utils.observability.trace``):
+``transcribe.load`` (WAV decode and windows), ``transcribe.upload``,
+``model.mel`` and ``model.encode``, ``decode.fetch`` (tokens to the host
+and text), around ``decode.beam``'s own; counters, once a batch:
+``decode.windows`` (real windows), ``decode.rows`` (batch rows times the
+beam) and ``decode.tokens`` (non-eot tokens returned).
+
 ``--mesh-data`` / ``--mesh-model`` shard the batched path over a ("data",
 "model") mesh of torchrun ranks (``parallel.mesh``): each batch is padded to
 ``--batch-size``, which the data axis must divide, each data rank decodes
@@ -52,7 +63,7 @@ from lyricalignment_tpu_torch.cli.common import (
 )
 from lyricalignment_tpu_torch.data.audio_io import load_audio_file
 from lyricalignment_tpu_torch.data.records import read_data
-from lyricalignment_tpu_torch.decode.beam import beam_search, greedy_decode
+from lyricalignment_tpu_torch.decode.beam import beam_search, greedy_search
 from lyricalignment_tpu_torch.models.convert import load_openai_checkpoint
 from lyricalignment_tpu_torch.models.whisper import Whisper, WhisperConfig, bf16_resident
 from lyricalignment_tpu_torch.ops.mel import log_mel, pad_or_trim
@@ -68,6 +79,7 @@ from lyricalignment_tpu_torch.text.whisper_tokenizer import (
     non_speech_token_ids,
     num_languages_for_vocab,
 )
+from lyricalignment_tpu_torch.utils.observability import add_counts, trace
 
 
 def parse_args(argv=None):
@@ -143,25 +155,28 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
 
     @torch.no_grad()
     def encode(audio):
-        mel = pad_or_trim(log_mel(audio, n_mels=wcfg.n_mels), N_FRAMES)
-        return whisper.embed_audio(mel)
+        with trace("model.mel"):
+            mel = pad_or_trim(log_mel(audio, n_mels=wcfg.n_mels), N_FRAMES)
+        with trace("model.encode"):
+            return whisper.embed_audio(mel)
 
     # expand records into (record_idx, window) work items; long audio is
     # routed to the sequential long-form decoder unless --fast-windows
     work = []
     longform_texts: dict = {}
     longform_items: list = []  # (record_idx, audio) for the batched seek loop
-    for ri, r in enumerate(records):
-        a = load_audio_file(r.audio_path, args.is_mixture)["speech"]
-        if len(a) > N_SAMPLES and not args.fast_windows:
-            longform_items.append((ri, a))
-            continue
-        n_windows = max(1, -(-len(a) // N_SAMPLES))
-        for w in range(n_windows):
-            seg = a[w * N_SAMPLES: (w + 1) * N_SAMPLES]
-            win = np.zeros((N_SAMPLES,), np.float32)
-            win[: len(seg)] = seg
-            work.append((ri, w, win))
+    with trace("transcribe.load"):
+        for ri, r in enumerate(records):
+            a = load_audio_file(r.audio_path, args.is_mixture)["speech"]
+            if len(a) > N_SAMPLES and not args.fast_windows:
+                longform_items.append((ri, a))
+                continue
+            n_windows = max(1, -(-len(a) // N_SAMPLES))
+            for w in range(n_windows):
+                seg = a[w * N_SAMPLES: (w + 1) * N_SAMPLES]
+                win = np.zeros((N_SAMPLES,), np.float32)
+                win[: len(seg)] = seg
+                work.append((ri, w, win))
 
     if longform_items:
         longform_kw = dict(
@@ -202,10 +217,15 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
             # pad rows keep the data shards equal; they are dropped below
             chunk = [chunk[r] if r < len(chunk) else None
                      for r in range(bs)[batch_sharding(mesh).rows(bs)]]
-        audio = np.stack([np.zeros((N_SAMPLES,), np.float32) if w is None else w[2]
-                          for w in chunk])
-        xa = encode(torch.from_numpy(audio).to(dev))
-        prompt = torch.tensor([prompt_ids] * len(chunk), dtype=torch.int64, device=dev)
+        with trace("transcribe.load"):
+            audio = np.stack([np.zeros((N_SAMPLES,), np.float32) if w is None else w[2]
+                              for w in chunk])
+        with trace("transcribe.upload"):
+            audio = torch.from_numpy(audio).to(dev)
+            prompt = torch.tensor([prompt_ids] * len(chunk), dtype=torch.int64, device=dev)
+        xa = encode(audio)
+        add_counts({"decode.windows": sum(w is not None for w in chunk),
+                    "decode.rows": len(chunk) * max(1, args.beam_size)})
         if args.temperature_fallback:
             from lyricalignment_tpu_torch.decode.transcribe import decode_with_fallback
 
@@ -214,26 +234,32 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
                 beam_size=args.beam_size, max_new_tokens=args.max_new_tokens,
                 suppress_ids=suppress_ids, begin_suppress_ids=begin_suppress_ids,
                 group=group)
-            done = [(w[0], w[1], e["text"]) for w, e in zip(chunk, entries) if w is not None]
+            with trace("decode.fetch"):
+                done = [(w[0], w[1], e["text"], e["avg_logprob"])
+                        for w, e in zip(chunk, entries) if w is not None]
+                add_counts({"decode.tokens": sum(len(e["tokens"])
+                                                 for w, e in zip(chunk, entries) if w is not None)})
         else:
             done = _decode_texts(whisper, wcfg, xa, prompt, chunk, whisper_tok, args,
                                  suppress_ids, begin_suppress_ids, group)
         if mesh is not None:
             done = [d for part in gather_objects(done, mesh.get_group(DATA_AXIS)) for d in part]
-        for ri, w, text in done:
-            texts.setdefault(ri, {})[w] = text
+        for ri, w, text, score in done:
+            texts.setdefault(ri, {})[w] = (text, score)
 
     results = []
     for ri, r in enumerate(records):
         if ri in longform_texts:
-            text = longform_texts[ri]
+            text, scores = longform_texts[ri], None
         else:
             windows = texts.get(ri, {})
-            text = "".join(windows[w] for w in sorted(windows))
+            text = "".join(windows[w][0] for w in sorted(windows))
+            scores = [windows[w][1] for w in sorted(windows)]
         entry = {"song_id": Path(r.audio_path).stem, "song_path": r.audio_path}
         if args.use_groundtruth:
             entry["lyric"] = r.text
         entry["inference"] = text
+        entry["avg_logprob"] = scores
         results.append(entry)
         if is_primary():
             print(entry["song_id"], "->", text[:60])
@@ -243,26 +269,30 @@ def transcribe_records(records, whisper: Whisper, wcfg: WhisperConfig, whisper_t
 def _decode_texts(whisper, wcfg, xa, prompt, chunk, whisper_tok, args, suppress_ids,
                   begin_suppress_ids, group):
     """Beam (or greedy) decode of a batch of windows -> [(record index,
-    window, text)] of its real rows (``chunk`` entries; None for pad)."""
+    window, text, avg_logprob)] of its real rows (``chunk`` entries; None
+    for pad)."""
     if args.beam_size > 1:
-        tokens, _ = beam_search(
+        tokens, scores = beam_search(
             whisper, wcfg, xa, prompt, beam_size=args.beam_size,
             max_new_tokens=args.max_new_tokens, eot=whisper_tok.eot,
             suppress_ids=suppress_ids, begin_suppress_ids=begin_suppress_ids,
             length_penalty=args.length_penalty,
             patience=getattr(args, "patience", None), group=group)
     else:
-        tokens = greedy_decode(
+        tokens, scores = greedy_search(
             whisper, wcfg, xa, prompt, max_new_tokens=args.max_new_tokens,
             eot=whisper_tok.eot, suppress_ids=suppress_ids,
             begin_suppress_ids=begin_suppress_ids)
-    done = []
-    for item, row_tokens in zip(chunk, tokens.cpu().numpy()):
-        if item is None:
-            continue
-        row = [int(t) for t in row_tokens if int(t) != whisper_tok.eot]
-        text = whisper_tok.decode(row) if whisper_tok.has_bpe else json.dumps(row)
-        done.append((item[0], item[1], text))
+    with trace("decode.fetch"):
+        done, n_tokens = [], 0
+        for item, row_tokens, score in zip(chunk, tokens.cpu().numpy(), scores.tolist()):
+            if item is None:
+                continue
+            row = [int(t) for t in row_tokens if int(t) != whisper_tok.eot]
+            text = whisper_tok.decode(row) if whisper_tok.has_bpe else json.dumps(row)
+            done.append((item[0], item[1], text, score))
+            n_tokens += len(row)
+        add_counts({"decode.tokens": n_tokens})
     return done
 
 

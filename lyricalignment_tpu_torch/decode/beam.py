@@ -30,10 +30,27 @@ a ``torch.Generator`` (:func:`gumbel_noise`).
 The ``*_loop`` helpers start from an already-primed cache and the prompt's
 last-position logits, so long-form decoding (``decode.longform``) primes
 conditioned prompts in one batched forward and reuses the same loops.
+
+Spans (``utils.observability.trace``; a shared no-op outside a profiler):
+``decode.init`` (the processor, cross K/V and the cache's allocation),
+``decode.prime``, ``decode.step`` around each :func:`decode_step`,
+``decode.select`` (the processor, log-softmax and the pick or beam update),
+``decode.sync`` (the host's read of "every row done", once a group). Each
+loop adds the token positions it decided (the first from the prime's
+logits, each later one by a step) to the counter ``decode.steps``.
+
+On a card each loop runs its first step as it is and captures the second
+in a CUDA graph (:class:`_Stepper`), which every later step of the loop
+replays: a step's shapes and its cache's addresses are fixed and its
+position lives on the device, so one graph launch a step takes the place of
+the decoder's thousands of kernel launches (~75 a layer), and the step's
+time no longer follows the host's. Inside a profiler the replay is the op
+``decode.graph``, which the graph's kernels are linked to.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -49,6 +66,7 @@ from lyricalignment_tpu_torch.models.whisper import (
     init_decode_cache,
     prime_decode_cache,
 )
+from lyricalignment_tpu_torch.utils.observability import add_counts, op_span, trace
 
 NEG_INF = -1.0e30
 
@@ -128,6 +146,77 @@ def _check_group(group: int) -> None:
         raise ValueError(f"decode group must be >= 1, got {group}")
 
 
+def _all_done(done: torch.Tensor) -> bool:
+    """The host's read of ``done.all()``: the one sync of a group of steps."""
+    with trace("decode.sync"):
+        return bool(done.all())
+
+
+def _graphable(model, tokens: torch.Tensor) -> bool:
+    """Whether a loop may replay its steps from a CUDA graph: a Whisper on a
+    card with no model group (a sharded decoder's collectives stay out of
+    any graph)."""
+    if not (tokens.is_cuda and isinstance(model, Whisper)):
+        return False
+    dec = model.decoder
+    return dec.vocab_group is None and all(
+        getattr(m, name, None) is None for m in dec.modules() for name in ("group", "mlp_group"))
+
+
+# one capture stream and graph memory pool a thread and device: a loop's graph
+# is captured into the pool its thread's previous graph used (which no loop
+# replays any more), so the pool's memory is reused rather than left behind
+_graph_state = threading.local()
+
+
+class _Stepper:
+    """:func:`decode_step` on one loop's cache: called as
+    ``step(tokens) -> (logits, cache)``. The first call runs the step as it
+    is (which also warms its library handles and workspaces) and decides,
+    by :func:`_graphable`, whether the second captures the step in a CUDA
+    graph on a side stream; from then on each call copies ``tokens`` into
+    the graph's input and replays it. A replay's logits are the graph's
+    output, overwritten by the next call; the cache is updated in place as
+    :func:`decode_step` updates it."""
+
+    def __init__(self, model, cfg: WhisperConfig, cache: Dict):
+        self.model, self.cfg, self.cache = model, cfg, cache
+        self.capture = self.graph = self.tokens = self.logits = None
+
+    def __call__(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        if self.graph is not None:
+            self.tokens.copy_(tokens)
+        elif self.capture:
+            self._capture(tokens)
+        else:
+            if self.capture is None:
+                self.capture = _graphable(self.model, tokens)
+            logits, self.cache = decode_step(self.model, self.cfg, tokens, self.cache)
+            return logits, self.cache
+        with op_span("decode.graph"):
+            self.graph.replay()
+        return self.logits, self.cache
+
+    def _capture(self, tokens: torch.Tensor) -> None:
+        dev = tokens.device
+        slots = _graph_state.__dict__.setdefault("by_device", {})
+        stream, last = slots.get(dev.index) or (torch.cuda.Stream(dev), None)
+        self.tokens = tokens.clone()
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=None if last is None else last.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                self.logits, self.cache = decode_step(self.model, self.cfg, self.tokens,
+                                                      self.cache)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        slots[dev.index] = (stream, graph)
+        self.graph = graph
+
+
 # ---------------------------------------------------------------------------
 # core loops (start from a primed cache + the prompt's last-position logits)
 # ---------------------------------------------------------------------------
@@ -161,18 +250,23 @@ def greedy_loop(
         lp = torch.log_softmax(l, dim=-1).gather(1, tok[:, None])[:, 0]
         return torch.where(done, eot, tok), torch.where(done, 0.0, lp)
 
-    first, sum_lp = pick(logits0, 0, torch.zeros((b,), dtype=torch.bool, device=out.device))
-    out[:, 0] = first
-    done = first == eot
+    with trace("decode.select"):
+        first, sum_lp = pick(logits0, 0, torch.zeros((b,), dtype=torch.bool, device=out.device))
+        out[:, 0] = first
+        done = first == eot
     tok, i = first[:, None], 1
-    while i < t and not bool(done.all()):
+    step = _Stepper(model, cfg, cache)
+    while i < t and not _all_done(done):
         for _ in range(min(group, t - i)):
-            logits, cache = decode_step(model, cfg, tok, cache)
-            nxt, lp = pick(logits, i, done)
-            out[:, i] = nxt
-            done = done | (nxt == eot)
-            sum_lp = sum_lp + lp
+            with trace("decode.step"):
+                logits, cache = step(tok)
+            with trace("decode.select"):
+                nxt, lp = pick(logits, i, done)
+                out[:, i] = nxt
+                done = done | (nxt == eot)
+                sum_lp = sum_lp + lp
             tok, i = nxt[:, None], i + 1
+    add_counts({"decode.steps": i})
     return out, sum_lp
 
 
@@ -298,63 +392,68 @@ def beam_loop(
     fin_ntext = torch.ones((b, n_buf), dtype=torch.int64, device=dev)  # 1: no 0/0
     fin_cnt = torch.zeros((b,), dtype=torch.int64, device=dev)
 
-    # first expansion: all beams of a sample are identical, so the
-    # reference's dict dedups the pool to beam 0's top (k+1) candidates
-    logp0 = torch.log_softmax(process(logits0, tokens, 0), dim=-1)
-    row_lp, row_tok = _top(logp0.reshape(b, k, -1)[:, 0], k + 1)        # [B, k+1]
-    (sum_lp, new_tok, _, fin_tok, fin_score, fin_ntext, fin_cnt) = select(
-        0, row_lp, row_tok, torch.zeros_like(row_tok), tokens.reshape(b, k, t),
-        fin_tok, fin_score, fin_ntext, fin_cnt)
-    # cache rows of a sample are identical after priming: no gather needed
-    tokens[:, 0] = new_tok.reshape(-1)
-    sum_lp = sum_lp.reshape(-1)                                          # [B*k]
-    # each sample's completion step: with patience < 1 the finalize pad
-    # draws live beams, frozen at the sample's own completion
-    i_done = torch.where(fin_cnt >= n_cand, 1, t)
-    cand_src = beams.repeat_interleave(k + 1)[None, :].expand(b, -1)
-    sample_row = torch.arange(b, device=dev)[:, None] * k
+    with trace("decode.select"):
+        # first expansion: all beams of a sample are identical, so the
+        # reference's dict dedups the pool to beam 0's top (k+1) candidates
+        logp0 = torch.log_softmax(process(logits0, tokens, 0), dim=-1)
+        row_lp, row_tok = _top(logp0.reshape(b, k, -1)[:, 0], k + 1)    # [B, k+1]
+        (sum_lp, new_tok, _, fin_tok, fin_score, fin_ntext, fin_cnt) = select(
+            0, row_lp, row_tok, torch.zeros_like(row_tok), tokens.reshape(b, k, t),
+            fin_tok, fin_score, fin_ntext, fin_cnt)
+        # cache rows of a sample are identical after priming: no gather needed
+        tokens[:, 0] = new_tok.reshape(-1)
+        sum_lp = sum_lp.reshape(-1)                                      # [B*k]
+        # each sample's completion step: with patience < 1 the finalize pad
+        # draws live beams, frozen at the sample's own completion
+        i_done = torch.where(fin_cnt >= n_cand, 1, t)
+        cand_src = beams.repeat_interleave(k + 1)[None, :].expand(b, -1)
+        sample_row = torch.arange(b, device=dev)[:, None] * k
 
     tok, i = tokens[:, 0:1], 1
-    while i < t and not bool((fin_cnt >= n_cand).all()):
+    step = _Stepper(model, cfg, cache)
+    while i < t and not _all_done(fin_cnt >= n_cand):
         for _ in range(min(group, t - i)):
             was_done = fin_cnt >= n_cand                                 # [B]
-            logits, cache = decode_step(model, cfg, tok, cache)
-            logp = torch.log_softmax(process(logits, tokens, i), dim=-1)    # [B*k, V]
-            row_lp, row_tok = _top(logp, k + 1)                         # [B*k, k+1]
-            (new_lp, new_tok, new_src, fin_tok, fin_score, fin_ntext, fin_cnt) = select(
-                i, (sum_lp[:, None] + row_lp).reshape(b, k * (k + 1)),
-                row_tok.reshape(b, k * (k + 1)), cand_src, tokens.reshape(b, k, t),
-                fin_tok, fin_score, fin_ntext, fin_cnt)
-            # freeze completed samples: live scores, tokens and cache rows
-            # keep the state they had when the sample completed
-            new_lp = torch.where(was_done[:, None], sum_lp.reshape(b, k), new_lp)
-            new_tok = torch.where(was_done[:, None], eot, new_tok)
-            new_src = torch.where(was_done[:, None], beams[None, :], new_src)
-            i_done = torch.where(~was_done & (fin_cnt >= n_cand), i + 1, i_done)
+            with trace("decode.step"):
+                logits, cache = step(tok)
+            with trace("decode.select"):
+                logp = torch.log_softmax(process(logits, tokens, i), dim=-1)    # [B*k, V]
+                row_lp, row_tok = _top(logp, k + 1)                     # [B*k, k+1]
+                (new_lp, new_tok, new_src, fin_tok, fin_score, fin_ntext, fin_cnt) = select(
+                    i, (sum_lp[:, None] + row_lp).reshape(b, k * (k + 1)),
+                    row_tok.reshape(b, k * (k + 1)), cand_src, tokens.reshape(b, k, t),
+                    fin_tok, fin_score, fin_ntext, fin_cnt)
+                # freeze completed samples: live scores, tokens and cache rows
+                # keep the state they had when the sample completed
+                new_lp = torch.where(was_done[:, None], sum_lp.reshape(b, k), new_lp)
+                new_tok = torch.where(was_done[:, None], eot, new_tok)
+                new_src = torch.where(was_done[:, None], beams[None, :], new_src)
+                i_done = torch.where(~was_done & (fin_cnt >= n_cand), i + 1, i_done)
 
-            src = (sample_row + new_src).reshape(-1)                    # [B*k]
-            _gather_cache(cache, src)
-            tokens = tokens.index_select(0, src)
-            tokens[:, i] = new_tok.reshape(-1)
+                src = (sample_row + new_src).reshape(-1)                # [B*k]
+                _gather_cache(cache, src)
+                tokens = tokens.index_select(0, src)
+                tokens[:, i] = new_tok.reshape(-1)
             tok, sum_lp, i = new_tok.reshape(-1, 1), new_lp.reshape(-1), i + 1
+    add_counts({"decode.steps": i})
+    with trace("decode.select"):
+        # finalize: pad a sample short of k finished sequences with its
+        # unfinished beams by descending sum-logprob (ties: higher beam first)
+        sum_lp_b = sum_lp.reshape(b, k)
+        order = torch.sort(sum_lp_b, dim=1, stable=True).indices.flip(1)    # [B, k]
+        pad_rows = tokens.reshape(b, k, t).gather(1, order[:, :, None].expand(-1, -1, t))
+        slot = fin_cnt[:, None] + beams[None, :]
+        any_w, fin_score, fin_tok = write_slots(
+            slot < k, slot, sum_lp_b.gather(1, order), pad_rows, fin_score, fin_tok)
+        fin_ntext = torch.where(any_w, i_done[:, None], fin_ntext)
 
-    # finalize: pad a sample short of k finished sequences with its
-    # unfinished beams by descending sum-logprob (ties: higher beam first)
-    sum_lp_b = sum_lp.reshape(b, k)
-    order = torch.sort(sum_lp_b, dim=1, stable=True).indices.flip(1)    # [B, k]
-    pad_rows = tokens.reshape(b, k, t).gather(1, order[:, :, None].expand(-1, -1, t))
-    slot = fin_cnt[:, None] + beams[None, :]
-    any_w, fin_score, fin_tok = write_slots(
-        slot < k, slot, sum_lp_b.gather(1, order), pad_rows, fin_score, fin_tok)
-    fin_ntext = torch.where(any_w, i_done[:, None], fin_ntext)
-
-    # rank: whisper MaximumLikelihoodRanker over text length excluding eot
-    lengths_f = fin_ntext.to(torch.float32)                             # [B, C]
-    norm = lengths_f if length_penalty is None else ((5.0 + lengths_f) / 6.0) ** length_penalty
-    best = (fin_score / norm).argmax(dim=1)
-    rows = torch.arange(b, device=dev)
-    avg = fin_score[rows, best] / (fin_ntext[rows, best].to(torch.float32) + 1.0)
-    return fin_tok[rows, best], avg
+        # rank: whisper MaximumLikelihoodRanker over text length excluding eot
+        lengths_f = fin_ntext.to(torch.float32)                             # [B, C]
+        norm = lengths_f if length_penalty is None else ((5.0 + lengths_f) / 6.0) ** length_penalty
+        best = (fin_score / norm).argmax(dim=1)
+        rows = torch.arange(b, device=dev)
+        avg = fin_score[rows, best] / (fin_ntext[rows, best].to(torch.float32) + 1.0)
+        return fin_tok[rows, best], avg
 
 
 @torch.no_grad()
@@ -384,17 +483,22 @@ def sample_loop(
         lp = torch.log_softmax(l, dim=-1).gather(1, tok[:, None])[:, 0]
         return torch.where(done, eot, tok), torch.where(done, 0.0, lp)
 
-    first, sum_lp = pick(logits0, 0, torch.zeros((b,), dtype=torch.bool, device=out.device))
-    out[:, 0] = first
-    done = first == eot
+    with trace("decode.select"):
+        first, sum_lp = pick(logits0, 0, torch.zeros((b,), dtype=torch.bool, device=out.device))
+        out[:, 0] = first
+        done = first == eot
     tok, i = first[:, None], 1
-    while i < max_new_tokens and not bool(done.all()):
-        logits, cache = decode_step(model, cfg, tok, cache)
-        nxt, lp = pick(logits, i, done)
-        out[:, i] = nxt
-        sum_lp = sum_lp + lp
-        done = done | (nxt == eot)
+    step = _Stepper(model, cfg, cache)
+    while i < max_new_tokens and not _all_done(done):
+        with trace("decode.step"):
+            logits, cache = step(tok)
+        with trace("decode.select"):
+            nxt, lp = pick(logits, i, done)
+            out[:, i] = nxt
+            sum_lp = sum_lp + lp
+            done = done | (nxt == eot)
         tok, i = nxt[:, None], i + 1
+    add_counts({"decode.steps": i})
     return out, sum_lp
 
 
@@ -410,7 +514,7 @@ def _check_context(cfg: WhisperConfig, prompt_len: int, max_new_tokens: int):
         )
 
 
-def greedy_decode(
+def greedy_search(
     model: Whisper,
     cfg: WhisperConfig,
     audio_features: torch.Tensor,  # [B, 1500, D]
@@ -420,15 +524,26 @@ def greedy_decode(
     suppress_ids: tuple = (),
     begin_suppress_ids: tuple = (),
     group: int = 1,
-) -> torch.Tensor:
-    """Returns int64[B, max_new_tokens], eot-padded after completion."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (int64[B, max_new_tokens], eot-padded after completion, and
+    whisper's avg_logprob f32[B] = sum_logprob / (n_text + 1), eot's
+    logprob in the sum where it was picked)."""
     _check_context(cfg, prompt.shape[1], max_new_tokens)
-    cache = init_decode_cache(model, cfg, audio_features, prompt.shape[1], max_new_tokens)
-    logits, _, cache = prime_decode_cache(model, cfg, prompt, cache)
-    process = make_processor(cfg, eot, suppress_ids, begin_suppress_ids,
-                             device=audio_features.device)
-    out, _ = greedy_loop(model, cfg, logits, cache, process, max_new_tokens, eot, group=group)
-    return out
+    with trace("decode.init"):
+        cache = init_decode_cache(model, cfg, audio_features, prompt.shape[1], max_new_tokens)
+        process = make_processor(cfg, eot, suppress_ids, begin_suppress_ids,
+                                 device=audio_features.device)
+    with trace("decode.prime"):
+        logits, _, cache = prime_decode_cache(model, cfg, prompt, cache)
+    out, sum_lp = greedy_loop(model, cfg, logits, cache, process, max_new_tokens, eot,
+                              group=group)
+    return out, sum_lp / ((out != eot).sum(dim=1) + 1).to(torch.float32)
+
+
+def greedy_decode(*args, **kwargs) -> torch.Tensor:
+    """:func:`greedy_search`'s tokens: int64[B, max_new_tokens],
+    eot-padded after completion."""
+    return greedy_search(*args, **kwargs)[0]
 
 
 def beam_search(
@@ -455,10 +570,12 @@ def beam_search(
     """
     k = beam_size
     _check_context(cfg, prompt.shape[1], max_new_tokens)
-    cache = init_decode_cache(model, cfg, audio_features, prompt.shape[1], max_new_tokens,
-                              beam_size=k)
-    logits, _, cache = prime_decode_cache(model, cfg, prompt, cache)
-    process = make_processor(cfg, eot, suppress_ids, begin_suppress_ids,
-                             device=audio_features.device)
+    with trace("decode.init"):
+        cache = init_decode_cache(model, cfg, audio_features, prompt.shape[1], max_new_tokens,
+                                  beam_size=k)
+        process = make_processor(cfg, eot, suppress_ids, begin_suppress_ids,
+                                 device=audio_features.device)
+    with trace("decode.prime"):
+        logits, _, cache = prime_decode_cache(model, cfg, prompt, cache)
     return beam_loop(model, cfg, logits.repeat_interleave(k, dim=0), cache, process, k,
                      max_new_tokens, eot, length_penalty, patience, group=group)

@@ -1132,6 +1132,52 @@ def test_greedy_beam_and_sampling_match_the_cpu_path(dev):
             torch.testing.assert_close(b[1].cpu(), a[1], atol=1e-5, rtol=0)
 
 
+def test_decode_loops_replay_the_step_graph_exactly(dev, monkeypatch):
+    """The loops' steps replayed from a CUDA graph give the tokens and
+    scores of the same loops running :func:`decode_step` itself on the card:
+    the graph holds the same kernels on the same buffers. Two beam searches
+    in a row reuse the thread's capture stream and graph pool."""
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+
+    gpu = _tiny_whisper().to(dev)
+    xa = (torch.randn(3, 50, 64, generator=torch.Generator().manual_seed(1)) * 2.0).to(dev)
+    prompt = torch.tensor([[31, 32]] * 3, device=dev)
+    kw = dict(max_new_tokens=10, eot=30)
+    runs = ((beam_mod.greedy_search, {}), (beam_mod.beam_search, dict(beam_size=4)),
+            (beam_mod.beam_search, dict(beam_size=5, patience=0.6, group=3)))
+    captures = []
+    capture = beam_mod._Stepper._capture
+    monkeypatch.setattr(beam_mod._Stepper, "_capture",
+                        lambda self, tok: (captures.append(1), capture(self, tok))[1])
+    graphed = [fn(gpu, gpu.cfg, xa, prompt, **kw, **extra) for fn, extra in runs]
+    assert len(captures) == len(runs)
+    monkeypatch.setattr(beam_mod, "_graphable", lambda model, tokens: False)
+    eager = [fn(gpu, gpu.cfg, xa, prompt, **kw, **extra) for fn, extra in runs]
+    assert len(captures) == len(runs)
+    for (a_tok, a_score), (b_tok, b_score) in zip(graphed, eager):
+        assert torch.equal(a_tok, b_tok)
+        assert torch.equal(a_score, b_score)
+
+
+def test_sampling_replays_the_step_graph_exactly(dev, monkeypatch):
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+    from lyricalignment_tpu_torch.models.whisper import init_decode_cache, prime_decode_cache
+
+    gpu = _tiny_whisper().to(dev)
+    xa = (torch.randn(2, 50, 64, generator=torch.Generator().manual_seed(3)) * 2.0).to(dev)
+    prompt = torch.tensor([[31, 32]] * 2, device=dev)
+    process = beam_mod.make_processor(gpu.cfg, 30, device=dev)
+    out = []
+    for graphable in (True, False):
+        if not graphable:
+            monkeypatch.setattr(beam_mod, "_graphable", lambda model, tokens: False)
+        cache = init_decode_cache(gpu, gpu.cfg, xa, 2, 10)
+        logits, _, cache = prime_decode_cache(gpu, gpu.cfg, prompt, cache)
+        out.append(beam_mod.sample_loop(gpu, gpu.cfg, logits, cache, process, _gen(5), 0.7, 10,
+                                        30))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
 @pytest.mark.parametrize("i", [0, 1, 2, 5])
 def test_timestamp_rules_match_the_cpu_path(dev, i):
     from lyricalignment_tpu_torch.decode.timestamps import apply_timestamp_rules

@@ -7,7 +7,10 @@ annotation); the counters add exactly under threads; the alignment path
 (``LyricAligner.align_many`` -> ``align_records`` -> ``forward_from_audio``)
 opens its spans once a batch, nested under ``align.batch`` and
 ``align.call``, and counts its requests, rows and samples and the
-encoder's windows; ``MetricLogger`` writes the JAX logger's JSONL
+encoder's windows; the transcription path (``transcribe_records`` ->
+``beam_search``) opens its load, upload, mel, encode and decode spans side
+by side (``decode.step`` once a step, ``decode.sync`` once a group) and
+counts its windows, rows, steps and tokens; ``MetricLogger`` writes the JAX logger's JSONL
 rows always and, with ``tensorboard=True``, TensorBoard scalars under
 ``tb/``."""
 
@@ -188,3 +191,61 @@ def test_metric_logger_rows_match_jax(tmp_path, tensorboard):
         acc = EventAccumulator(str(tmp_path / "port" / "tb"))
         acc.Reload()
         assert [e.value for e in acc.Scalars("total")] == [2.5, 2.0]
+
+
+DECODE_LOOP = ("decode.step", "decode.select", "decode.sync")
+
+
+def test_transcribe_path_spans_and_counts(tmp_path):
+    """A miniature float32 whisper transcribes three 10 s songs in batches
+    of 2 at beam 2, 8 positions and decode group 3, eot's embedding zeroed
+    so no beam ends early: each batch primes once, runs 7 steps, reads the
+    done flag ceil(7 / 3) times, and selects 1 + 7 times plus the
+    finalisation; the spans do not nest in one another, and the counters are
+    exact. Outside a profiler ``decode.beam``'s spans are the shared no-op."""
+    from types import SimpleNamespace
+
+    from lyricalignment_tpu_torch.cli.inference_transcript import transcribe_records
+    from lyricalignment_tpu_torch.data.records import Record
+    from lyricalignment_tpu_torch.decode import beam as beam_mod
+    from lyricalignment_tpu_torch.models.whisper import Whisper
+    from lyricalignment_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+
+    rng = np.random.default_rng(7)
+    records = []
+    for i in range(3):
+        path = str(tmp_path / f"song{i}.wav")
+        write_wav(path, (0.1 * rng.standard_normal(10 * 16000)).astype(np.float32))
+        records.append(Record(audio_path=path, text=""))
+    torch.manual_seed(0)
+    wcfg = WhisperConfig(n_mels=80, n_vocab=51865, n_audio_ctx=1500, n_audio_state=32,
+                         n_audio_head=2, n_audio_layer=1, n_text_ctx=16, n_text_state=32,
+                         n_text_head=2, n_text_layer=1)
+    whisper = Whisper(wcfg).eval()
+    tok = WhisperTokenizer()
+    with torch.no_grad():
+        whisper.decoder.token_embedding.weight[tok.eot] = 0.0
+    args = SimpleNamespace(is_mixture=0, batch_size=2, beam_size=2, max_new_tokens=8,
+                           use_groundtruth=False, temperature_fallback=False, fast_windows=False,
+                           length_penalty=None, patience=None,
+                           no_condition_on_previous_text=False, seed=0, decode_group=3)
+    obs.reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = transcribe_records(records, whisper, wcfg, tok, args)
+    assert all(len(json.loads(r["inference"])) == 8 and len(r["avg_logprob"]) == 1 for r in out)
+    assert dict(obs.counts) == {"decode.windows": 3, "decode.rows": 3 * 2, "decode.steps": 2 * 8,
+                                "decode.tokens": 3 * 8}
+
+    spans = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(("decode.", "transcribe.", "model."))]
+    names = [sp[0] for sp in spans]
+    want = {"transcribe.load": 1 + 2, "transcribe.upload": 2, "model.mel": 2, "model.encode": 2,
+            "decode.init": 2, "decode.prime": 2, "decode.step": 2 * 7, "decode.sync": 2 * 3,
+            "decode.select": 2 * (1 + 7 + 1), "decode.fetch": 2}
+    assert {n: names.count(n) for n in want} == want
+    for name, t0, t1 in spans:
+        inside = {o[0] for o in spans if o[1] <= t0 and t1 <= o[2] and o[1:] != (t0, t1)}
+        assert not inside, (name, inside)
+    obs.reset_counts()
+    assert beam_mod.trace is obs.trace
+    assert beam_mod.trace("decode.step") is obs.trace("decode.sync") is obs.trace("x")
